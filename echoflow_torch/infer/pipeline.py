@@ -1,0 +1,429 @@
+"""Full-video multi-heartbeat segmentation with shift-ensemble label fusion
+(port of `echoflow.infer.pipeline`).
+
+Per video, after host decode:
+
+  1. Every shift's "slice + trilinear tail-stretch to round(L_k/32)*32
+     frames" is a linear map on the time axis, built on the host as a
+     (K, T', T) matrix stack (banker's rounding, reference
+     fuse_utils.py:22) and applied as one einsum.
+  2. Only the clips that exist are gathered (`clip_src`) and run through
+     the network in balanced chunks.
+  3. Softmax re-interpolation to each shift's true length is the transposed
+     matrix stack, again one einsum, then argmax.
+  4. Shift alignment is a gather with host-built index/validity matrices
+     (reference fuse_utils.py:84-98).
+  5. Per-frame SIMPLE/STAPLE/majority fusion runs batched over frames
+     (`ops/fusion.py`), or the softmax-mean path fuses probabilities.
+  6. The binary mask is bit-packed on the device, 8 pixels per byte.
+
+On the card the decoder tail of every forward is the CUDA kernel of
+`ops/decoder_heads.py`; host operands are cached per video length on the
+device; `segment_videos` dispatches ahead from pinned host memory.
+
+Each layer runs inside a `torch.profiler.record_function` range named
+`echoflow_torch.<layer>` (copies, shift, backbone, projections,
+decoder_tail, model_forward, reinterp, fusion), so `profile_torch.py` can
+group device time by layer.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from echoflow_torch.models.fast_forward import folded_forward
+from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
+from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet
+from echoflow_torch.ops.fusion import fuse_frames, softmax_mean_fuse
+from echoflow_torch.ops.normalize import zeroone_normalize
+from echoflow_torch.ops.resize import _linear_resize_matrix_np, resize_linear
+from echoflow_torch.utils.concurrency import get_or_build
+
+CLIP_LEN = 32
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def _packbits(mask: torch.Tensor) -> torch.Tensor:
+    """Bit-pack a binary (T, H, W) uint8 mask along W (8 pixels/byte, most
+    significant bit first, as np.packbits) to cut device->host traffic 8x;
+    the inverse is `_unpackbits`. No-op if W % 8 != 0."""
+    t, h, w = mask.shape
+    if w % 8 != 0:
+        return mask
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=mask.device)
+    return (mask.reshape(t, h, w // 8, 8) * weights).sum(dim=-1, dtype=torch.uint8)
+
+
+def _unpackbits(packed: np.ndarray, width: int) -> np.ndarray:
+    if packed.shape[-1] == width:
+        return packed
+    return np.unpackbits(packed, axis=-1)[..., :width]
+
+
+def round_half_even(x: float) -> int:
+    """np.round semantics (banker's rounding): load-bearing for clip counts
+    (reference fuse_utils.py:22,29)."""
+    return int(np.round(x))
+
+
+def divide_to_consecutive_clips(video: np.ndarray, clip_length: int = CLIP_LEN,
+                                interpolate_last: bool = False) -> np.ndarray:
+    """Reference-parity host helper: (3, L, H, W) -> (N, 3, clip_length, H, W).
+
+    With interpolate_last, the whole video is trilinear-stretched
+    (align_corners=False) to round(L/clip)*clip frames first
+    (reference fuse_utils.py:16-33)."""
+    length = video.shape[1]
+    target = round_half_even(length / clip_length) * clip_length
+    src = video
+    if length % clip_length != 0 and interpolate_last:
+        src = resize_linear(torch.from_numpy(np.asarray(video, np.float32)), 1, target,
+                            align_corners=False).numpy()
+    clips = [src[:, s: s + clip_length] for s in range(0, target, clip_length)
+             if s + clip_length <= src.shape[1]]
+    return np.stack(clips) if clips else np.empty((0, 3, clip_length, *video.shape[2:]))
+
+
+def _shift_plan(length: int, num_clips: int, step: int):
+    """Per-shift (shift_offset, L_k, L_k') with the reference's shift-count
+    clamp (fuse_utils.py:38-48), hardened at the lower edge: for
+    32 <= L < 32 + step the reference computes num_clips = 0 and crashes
+    downstream; echoflow clamps < 1 to 1 and segments the single shift."""
+    if length < CLIP_LEN + num_clips * step:
+        num_clips = (length - CLIP_LEN) // step
+    if num_clips < 1:
+        num_clips = 1
+    plan = []
+    for k in range(num_clips):
+        off = k * step
+        lk = length - off
+        lk_interp = max(CLIP_LEN, round_half_even(lk / CLIP_LEN) * CLIP_LEN)
+        plan.append((off, lk, lk_interp))
+    return plan
+
+
+def _build_host_operands(length: int, num_clips: int, step: int, t_pad: int):
+    """The host-computable pieces of one video length: the forward and
+    backward time-resize matrix stacks, the shift-alignment gather indices,
+    and validity masks (verbatim from echoflow)."""
+    plan = _shift_plan(length, num_clips, step)
+    k_num = len(plan)
+    c_max = t_pad // CLIP_LEN
+
+    fwd = np.zeros((k_num, t_pad, t_pad), np.float32)   # (K, T', T)
+    bwd = np.zeros((k_num, t_pad, t_pad), np.float32)   # (K, T, T')
+    clip_valid = np.zeros((k_num, c_max), np.float32)
+    frame_valid_per_shift = np.zeros((k_num, t_pad), np.float32)
+
+    for k, (off, lk, lki) in enumerate(plan):
+        m = _linear_resize_matrix_np(lk, lki, False)     # (L_k', L_k)
+        fwd[k, :lki, off:off + lk] = m
+        if lki != lk:
+            back = _linear_resize_matrix_np(lki, lk, False)  # (L_k, L_k')
+        else:
+            back = np.eye(lk, dtype=np.float32)
+        bwd[k, :lk, :lki] = back
+        clip_valid[k, : lki // CLIP_LEN] = 1.0
+        frame_valid_per_shift[k, :lk] = 1.0
+
+    # Shift-aligned gather: rater k for original frame i is local frame
+    # i - off_k. Validity per reference fuse_utils.py:82-98: frame 0 ->
+    # shift 0 only; frame i >= 1 -> shifts k < min(i, K) with i - off_k >= 0.
+    gather_idx = np.zeros((t_pad, k_num), np.int64)
+    valid = np.zeros((t_pad, k_num), np.float32)
+    for i in range(length):
+        for k, (off, lk, _) in enumerate(plan):
+            local = i - off
+            if i == 0:
+                ok = k == 0
+            else:
+                ok = (k < min(i, k_num)) and local >= 0
+            if ok and 0 <= local < lk:
+                gather_idx[i, k] = local
+                valid[i, k] = 1.0
+    # Frames the fusion can't source from any shift fall back to shift 0
+    # (only possible for 1 <= i < step; the reference misaligns there).
+    for i in range(length):
+        if valid[i].sum() == 0:
+            gather_idx[i, 0] = i
+            valid[i, 0] = 1.0
+
+    # Flat indices (into the k-major (K * c_max) clip grid) of the clips
+    # that actually exist: shift k contributes its first lki/32 slots. Only
+    # these reach the network; the padded tail slots would meet all-zero
+    # `bwd` columns anyway, so dropping them from the forward is exact.
+    valid_clip_idx = np.flatnonzero(clip_valid.reshape(-1)).astype(np.int32)
+
+    return dict(fwd=fwd, bwd=bwd, clip_valid=clip_valid, gather_idx=gather_idx,
+                valid=valid, k_num=k_num, c_max=c_max,
+                valid_clip_idx=valid_clip_idx)
+
+
+@dataclass
+class _Pending:
+    """A packed mask on its way to the host: `packed` is a host tensor
+    (pinned, filled asynchronously on the card) that is complete once
+    `done` has fired (None on the CPU, where it is complete at once)."""
+
+    packed: torch.Tensor
+    done: object = None
+
+    def numpy(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.packed.numpy()
+
+
+@dataclass
+class VideoSegmenter:
+    """Batched full-video segmentation engine.
+
+    Parameters
+    ----------
+    variables : the port's state dict for `R2Plus1DMotionSegNet` (unfolded,
+        or folded: a state dict without BN statistics is taken as folded)
+    device : "cuda" (default) or "cpu". A CUDA device that is not there
+        raises; the engine never falls back to the CPU by itself.
+    dtype : compute dtype. "auto" resolves to bfloat16 on CUDA and float32
+        on the CPU. float32 is the parity path: when `dtype` or
+        `backbone_dtype` is float32 on CUDA, the engine turns TF32 off for
+        cuDNN and matmuls. That setting is global to the process.
+    backbone_dtype : dtype of the conv backbone only (None: `dtype`).
+    forward_chunk : clips per forward chunk (bounds peak activation memory)
+    bucket : videos are padded to a multiple of this many frames
+    fold_bn : absorb every BatchNorm into its conv at construction
+    decoder : "kernel" runs the folded forward with the decoder-tail kernel
+        (its plain version on the CPU) and needs a folded model;
+        "model" runs the module's forward
+    operand_cache_size : LRU cap on per-length device operands
+    """
+
+    variables: dict
+    device: object = "cuda"
+    dtype: object = "auto"
+    backbone_dtype: object = None
+    forward_chunk: int = 30
+    bucket: int = 64
+    fold_bn: bool = True
+    decoder: str = "kernel"
+    operand_cache_size: int = 64
+
+    def __post_init__(self):
+        if self.decoder not in ("kernel", "model"):
+            raise ValueError(f"decoder must be 'kernel' or 'model'; got {self.decoder!r}")
+        self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VideoSegmenter: no CUDA device (pass device='cpu' "
+                               "to run on the CPU)")
+        if self.dtype == "auto":
+            self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        bdt = self.dtype if self.backbone_dtype is None else self.backbone_dtype
+        if self.device.type == "cuda" and torch.float32 in (self.dtype, bdt):
+            # fp32 parity: cuDNN convs default to TF32 (BASELINE.md:31-37).
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        state = dict(self.variables)
+        folded = is_folded(state)
+        if self.fold_bn and not folded:
+            state = fold_state_dict(state)
+            folded = True
+        if self.decoder == "kernel" and not folded:
+            raise ValueError("VideoSegmenter: decoder='kernel' needs a folded model; "
+                             "pass fold_bn=True or decoder='model'")
+        model = R2Plus1DMotionSegNet(folded=folded)
+        model.load_state_dict(state)
+        model.eval().requires_grad_(False)
+        if self.decoder == "model":
+            model.to(self.dtype)
+        else:
+            model.r2plus1d_model.to(bdt)
+        self._model = model.to(self.device)
+        self._operand_cache = OrderedDict()
+        # segment_videos stages on a worker thread; direct segment_video
+        # calls may race it on the operand cache.
+        self._cache_lock = threading.Lock()
+
+    def _chunk_plan(self, n_fwd: int):
+        """Balanced forward chunking for `n_fwd` clips: n_chunks is the
+        fewest chunks of <= forward_chunk, and the chunk size is the
+        balanced ceil(n_fwd / n_chunks), so the padding waste is < n_chunks
+        clips (40 valid clips at forward_chunk=30 forward 2x20, not 2x30).
+        Returns (n_chunks, chunk, total)."""
+        per_step = max(1, self.forward_chunk)
+        n_chunks = max(1, -(-n_fwd // per_step))
+        chunk = -(-n_fwd // n_chunks)
+        return n_chunks, chunk, n_chunks * chunk
+
+    def _forward(self, xs: torch.Tensor) -> torch.Tensor:
+        if self.decoder == "model":
+            with record_function("echoflow_torch.model_forward"):
+                seg, _ = self._model(xs)
+        else:
+            seg, _ = folded_forward(self._model, xs, dtype=self.dtype, with_motion=False)
+        with record_function("echoflow_torch.reinterp"):
+            return torch.softmax(seg, dim=1)
+
+    def _operands(self, length: int, num_clips: int, step: int, t_pad: int):
+        """Per-length device operands, built once (LRU-bounded)."""
+        def build():
+            ops = _build_host_operands(length, num_clips, step, t_pad)
+            vidx = ops["valid_clip_idx"]
+            n_valid = len(vidx)
+            _, _, total = self._chunk_plan(n_valid)
+            # Forward-gather indices: valid slots, then clip 0 as padding.
+            clip_src = np.zeros(total, np.int64)
+            clip_src[:n_valid] = vidx
+            # Inverse map grid slot -> forwarded position; slots that were
+            # never forwarded point at row `total`, an appended zero row.
+            clip_inv = np.full(ops["k_num"] * ops["c_max"], total, np.int64)
+            clip_inv[vidx] = np.arange(n_valid)
+            dev = [torch.from_numpy(a).to(self.device) for a in
+                   (ops["fwd"], ops["bwd"], ops["gather_idx"], ops["valid"],
+                    clip_src, clip_inv)]
+            return ops["k_num"], n_valid, dev
+
+        return get_or_build(self._operand_cache, self._cache_lock,
+                            (length, num_clips, step, t_pad), build,
+                            lru_cap=self.operand_cache_size)
+
+    @torch.no_grad()
+    def _run(self, video, k_num, n_fwd, fuse_method, mono, fwd, bwd, gather_idx,
+             valid, clip_src, clip_inv):
+        t_pad = video.shape[1]
+        c_max = t_pad // CLIP_LEN
+        with record_function("echoflow_torch.shift"):
+            # uint8 from the host (4x less traffic), normalized on the
+            # device; zeroone is idempotent, so pre-normalized floats are
+            # unchanged. Padding replicates the last frame: the min/max
+            # are unaffected.
+            video = zeroone_normalize(video.float())
+            h, w = video.shape[2], video.shape[3]
+            # 1. shift + tail-stretch, all shifts at once: (K, C, T', H, W)
+            shifted = torch.einsum("kst,cthw->kcshw", fwd, video)
+            if mono:
+                # Replicate to RGB only after the channel-proportional work.
+                shifted = shifted.expand(k_num, 3, *shifted.shape[2:])
+            # 2. slice to clips and keep only the clips that exist
+            clips = shifted.reshape(k_num, 3, c_max, CLIP_LEN, h, w).movedim(1, 2)
+            clips = clips.reshape(k_num * c_max, 3, CLIP_LEN, h, w)[clip_src]
+        n_chunks, chunk, _ = self._chunk_plan(n_fwd)
+        probs = [self._forward(clips[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
+        with record_function("echoflow_torch.reinterp"):
+            # Restore the full k-major (K * c_max) clip grid; slots never
+            # forwarded read the appended zero row (exact zeros, as the
+            # all-zero `bwd` columns they meet would give).
+            probs.append(probs[0].new_zeros((1, *probs[0].shape[1:])))
+            probs = torch.cat(probs)[clip_inv]
+            # 3. reassemble (K, 2, T', H, W); re-interp to true lengths
+            probs = probs.reshape(k_num, c_max, 2, CLIP_LEN, h, w).movedim(2, 1)
+            probs = probs.reshape(k_num, 2, c_max * CLIP_LEN, h, w)
+            interp = torch.einsum("kts,kcshw->kcthw", bwd, probs)   # (K, 2, T, H, W)
+            k_idx = torch.arange(k_num, device=interp.device)[None, :]
+        # 4. shift-aligned rater stack (T, K, ...), fused per frame
+        with record_function("echoflow_torch.fusion"):
+            if fuse_method == "softmax":
+                stack = interp.movedim(2, 0)[gather_idx, k_idx]     # (T, K, 2, H, W)
+                return _packbits(softmax_mean_fuse(stack, valid))
+            labels = torch.argmax(interp, dim=1).to(torch.uint8)    # (K, T, H, W)
+            stack = labels.movedim(1, 0)[gather_idx, k_idx]         # (T, K, H, W)
+            return _packbits(fuse_frames(stack, valid, method=fuse_method))
+
+    # ----------------------------------------------------------------- api
+    def segment_video_async(self, video: np.ndarray, num_clips: int = 1,
+                            step: int = 1, fuse_method: str = "simple",
+                            mono: bool | None = None):
+        """Enqueue segmentation without waiting for the card; returns
+        (pending, (length, width)). `pending.numpy()` waits and gives the
+        packed mask; `_unpackbits(..., width)[:length]` unpacks it.
+
+        `mono=None` detects grayscale-in-RGB videos (all three channels
+        bit-identical, the normal case for echo AVIs) and ships one
+        channel, replicated on the device: 3x less host->device traffic for
+        identical masks. Pass False to force the RGB path."""
+        if fuse_method not in ("majority", "simple", "staple", "softmax"):
+            raise ValueError(f"unknown fuse method: {fuse_method}")
+        length = int(video.shape[1])
+        t_pad = max(self.bucket, -(-length // self.bucket) * self.bucket)
+        k_num, n_fwd, dev_ops = self._operands(length, num_clips, step, t_pad)
+
+        video = np.asarray(video)
+        if video.shape[0] == 1:
+            mono = True   # a single channel can only take the mono path
+        elif mono is None:
+            mono = (video.shape[0] == 3
+                    and np.array_equal(video[0], video[1])
+                    and np.array_equal(video[1], video[2]))
+        dtype = torch.uint8 if video.dtype == np.uint8 else torch.float32
+        src = torch.from_numpy(np.ascontiguousarray(video[:1] if mono else video))
+        cuda = self.device.type == "cuda"
+        vid = torch.empty((src.shape[0], t_pad, *src.shape[2:]), dtype=dtype,
+                          pin_memory=cuda)
+        vid[:, :length] = src
+        vid[:, length:] = src[:, -1:]  # replicate-pad: keeps min/max honest
+        with record_function("echoflow_torch.copies"):
+            vid = vid.to(self.device, non_blocking=True)
+
+        packed = self._run(vid, k_num, n_fwd, fuse_method, mono, *dev_ops)
+        if not cuda:
+            return _Pending(packed), (length, int(video.shape[3]))
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        with record_function("echoflow_torch.copies"):
+            host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return _Pending(host, done), (length, int(video.shape[3]))
+
+    def segment_video(self, video: np.ndarray, num_clips: int = 1, step: int = 1,
+                      fuse_method: str = "simple") -> np.ndarray:
+        """video: (3, L, H, W), uint8 raw intensities (preferred) or float
+        already in [0, 1]; per-channel zeroone normalization happens on the
+        device either way. Returns (L, H, W) uint8 labels (the reference
+        `segment_a_video_with_fusion` contract, fuse_utils.py:36-102)."""
+        pending, (length, width) = self.segment_video_async(video, num_clips, step,
+                                                            fuse_method)
+        return _unpackbits(pending.numpy(), width)[:length]
+
+    def segment_videos(self, videos, num_clips: int = 1, step: int = 1,
+                       fuse_method: str = "simple", queue_depth: int = 3):
+        """Segment a sequence of videos with dispatch-ahead pipelining: up
+        to `queue_depth` videos are in flight; staging and dispatch run on
+        one worker thread (FIFO, so order is kept) and results are fetched
+        on background threads, so host->device copies, the card's work and
+        the caller's per-video work overlap. Yields (L, H, W) uint8 masks
+        in order."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        def fetch(handle_future):
+            pending, (length, width) = handle_future.result()
+            return _unpackbits(pending.numpy(), width)[:length]
+
+        with ThreadPoolExecutor(max_workers=1) as dispatch_pool, \
+                ThreadPoolExecutor(max_workers=2) as fetch_pool:
+            inflight: deque = deque()
+            for video in videos:
+                handle = dispatch_pool.submit(
+                    self.segment_video_async, video, num_clips, step, fuse_method)
+                inflight.append(fetch_pool.submit(fetch, handle))
+                if len(inflight) >= queue_depth:
+                    yield inflight.popleft().result()
+            while inflight:
+                yield inflight.popleft().result()
+
+
+def segment_a_video_with_fusion(video, segmenter: VideoSegmenter,
+                                interpolate_last: bool = True, step: int = 1,
+                                num_clips: int = 10, fuse_method: str = "simple",
+                                class_list=(0, 1)) -> np.ndarray:
+    """Reference-named alias (fuse_utils.py:36) over a `VideoSegmenter`.
+    `interpolate_last` and `class_list` exist for signature parity: the
+    engine always tail-interpolates and the EchoNet task is binary."""
+    del interpolate_last, class_list
+    return segmenter.segment_video(np.asarray(video), num_clips=num_clips,
+                                   step=step, fuse_method=fuse_method)

@@ -1,0 +1,184 @@
+"""R(2+1)D-18 MotionNet: joint segmentation + bidirectional motion heads
+(port of `echoflow.models.r2plus1d`).
+
+The reference architecture (src/model/R2plus1D_18_MotionNet.py:10-71): a
+torchvision-topology r2plus1d_18 video backbone whose stem/layer1..4 feature
+maps are upsampled to input resolution (trilinear, align_corners=True),
+combined by two 1x1x1 conv+BN+ReLU blocks (1024->64->64), and split into a
+2-channel segmentation head and a tanh-bounded 4-channel motion head.
+
+Module and parameter names are the reference's own state-dict keys
+(`r2plus1d_model.stem.0.weight`, `r2plus1d_model.layer1.0.conv1.0.0.weight`,
+`comb_1_layer.weight`, ...), so a reference `.pth` loads once its
+DataParallel `module.` prefix is stripped (`models/convert.py`). The unused
+400-way Kinetics fc is carried, which makes the parameter count exactly the
+reference's 31,575,731.
+
+With `folded=True` every BatchNorm is an `nn.Identity` and the conv before
+it has a bias (`models/fold_bn.py` writes both); the sequential indices
+stay those of the reference, so a folded state dict keeps its key names.
+
+The decoder never materializes the 1024-channel concat: 1x1x1 convolution
+and trilinear upsampling are both linear, so comb1(concat_i(up(f_i))) ==
+sum_i up(f_i @ W_i) + b. Each tap is projected to 64 channels at its native
+resolution, projections that share a resolution are summed first
+(`fast_forward.merged_projections`), and only then upsampled.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from echoflow_torch.models.fast_forward import merged_projections
+from echoflow_torch.ops.resize import trilinear_resize
+
+BN_EPS = 1e-5
+
+
+def midplanes(in_ch: int, out_ch: int) -> int:
+    """torchvision's (2+1)D midplanes rule, computed once per block."""
+    return (in_ch * out_ch * 3 * 3 * 3) // (in_ch * 3 * 3 + 3 * out_ch)
+
+
+def _bn(ch: int, folded: bool) -> nn.Module:
+    # torch momentum 0.1 is flax momentum 0.9 (running-stat update weight).
+    return nn.Identity() if folded else nn.BatchNorm3d(ch, eps=BN_EPS, momentum=0.1)
+
+
+def _conv2plus1d(cin, cout, mid, stride, folded):
+    """spatial (1,3,3) -> BN -> ReLU -> temporal (3,1,1); indices 0, 1, 3
+    as torchvision's Conv2Plus1D."""
+    return nn.Sequential(
+        nn.Conv3d(cin, mid, (1, 3, 3), (1, stride, stride), (0, 1, 1), bias=folded),
+        _bn(mid, folded),
+        nn.ReLU(inplace=True),
+        nn.Conv3d(mid, cout, (3, 1, 1), (stride, 1, 1), (1, 0, 0), bias=folded),
+    )
+
+
+class BasicBlock(nn.Module):
+    """Residual block of two (2+1)D convs (torchvision VideoResNet
+    BasicBlock with the Conv2Plus1D builder)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, folded: bool = False):
+        super().__init__()
+        mid = midplanes(cin, cout)
+        self.conv1 = nn.Sequential(_conv2plus1d(cin, cout, mid, stride, folded),
+                                   _bn(cout, folded), nn.ReLU(inplace=True))
+        self.conv2 = nn.Sequential(_conv2plus1d(cout, cout, mid, 1, folded),
+                                   _bn(cout, folded))
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv3d(cin, cout, 1, (stride,) * 3, bias=folded), _bn(cout, folded))
+        self.relu = nn.ReLU(inplace=True)
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.relu(self.conv2(self.conv1(x)) + identity)
+
+
+class R2Plus1DBackbone(nn.Module):
+    """Stem + 4 stages (+ the unused Kinetics fc); `forward` returns the
+    five tap feature maps, each (N, C, T, H, W)."""
+
+    def __init__(self, folded: bool = False):
+        super().__init__()
+        self.stem = nn.Sequential(
+            nn.Conv3d(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3), bias=folded),
+            _bn(45, folded), nn.ReLU(inplace=True),
+            nn.Conv3d(45, 64, (3, 1, 1), 1, (1, 0, 0), bias=folded),
+            _bn(64, folded), nn.ReLU(inplace=True),
+        )
+        plan = [(64, 64, 1), (64, 128, 2), (128, 256, 2), (256, 512, 2)]
+        for i, (cin, cout, stride) in enumerate(plan, start=1):
+            setattr(self, f"layer{i}", nn.Sequential(
+                BasicBlock(cin, cout, stride, folded), BasicBlock(cout, cout, 1, folded)))
+        self.fc = nn.Linear(512, 400)  # unused; checkpoint/param-count parity
+
+    def forward(self, x):
+        x = self.stem(x)
+        taps = [x]
+        for i in range(1, 5):
+            x = getattr(self, f"layer{i}")(x)
+            taps.append(x)
+        return taps
+
+
+class R2Plus1DMotionSegNet(nn.Module):
+    """Full MotionNet. Public contract matches the reference:
+
+        seg, motion = model(video)
+        video (N, 3, T, H, W) float; seg (N, 2, T, H, W) float32;
+        motion (N, 4, T, H, W) float32, tanh-bounded.
+
+    The forward computes in the dtype of the module's parameters (cast the
+    module with `.to(torch.bfloat16)` for the bf16 path).
+    """
+
+    def __init__(self, folded: bool = False):
+        super().__init__()
+        self.folded = folded
+        self.r2plus1d_model = R2Plus1DBackbone(folded)
+        self.comb_1_layer = nn.Conv3d(1024, 64, 1)
+        self.comb_batch_norm_1 = _bn(64, folded)
+        self.comb_2_layer = nn.Conv3d(64, 64, 1)
+        self.comb_batch_norm_2 = _bn(64, folded)
+        self.motion_head = nn.Conv3d(64, 4, 1)
+        self.segmentation_head = nn.Conv3d(64, 2, 1)
+
+    def forward(self, video):
+        t, h, w = video.shape[2:]
+        dtype = self.comb_1_layer.weight.dtype
+        taps = self.r2plus1d_model(video.to(dtype))
+        acc = None
+        for proj in merged_projections(taps, self.comb_1_layer.weight, dtype):
+            up = trilinear_resize(proj, (t, h, w), align_corners=True, axes=(1, 2, 3))
+            acc = up if acc is None else acc + up
+        # Channels-last (N, T, H, W, 64) -> (N, 64, T, H, W) for the BNs.
+        y = (acc + self.comb_1_layer.bias).permute(0, 4, 1, 2, 3)
+        y = torch.relu(self.comb_batch_norm_1(y))
+        y = torch.relu(self.comb_batch_norm_2(self.comb_2_layer(y)))
+        seg = self.segmentation_head(y)
+        motion = torch.tanh(self.motion_head(y))
+        return seg.float(), motion.float()
+
+
+@torch.no_grad()
+def init_weights(model: R2Plus1DMotionSegNet, generator: torch.Generator) -> R2Plus1DMotionSegNet:
+    """The reference's initialization, drawn from `generator` (a CPU
+    generator, so a seed gives the same weights on every machine):
+    Kaiming-normal fan_out for every conv, the motion head N(0, sqrt(1e-5)),
+    comb1 uniform with variance 1/(3 fan_in) and zero bias, BNs identity,
+    the unused fc zero."""
+    def normal_(p, std):
+        p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv3d):
+            fan_out = mod.out_channels * math.prod(mod.kernel_size)
+            normal_(mod.weight, math.sqrt(2.0 / fan_out))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm3d):
+            mod.reset_parameters()
+    bound = 1.0 / math.sqrt(model.comb_1_layer.in_channels)
+    model.comb_1_layer.weight.copy_(
+        (torch.rand(model.comb_1_layer.weight.shape, generator=generator) * 2 - 1) * bound)
+    normal_(model.motion_head.weight, math.sqrt(1e-5))
+    model.r2plus1d_model.fc.weight.zero_()
+    model.r2plus1d_model.fc.bias.zero_()
+    return model
+
+
+def create_model(seed: int = 0) -> R2Plus1DMotionSegNet:
+    """A seeded, initialized (unfolded) MotionNet on the CPU, in eval mode."""
+    gen = torch.Generator().manual_seed(seed)
+    return init_weights(R2Plus1DMotionSegNet(), gen).eval()
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,42 @@
+"""Per-channel [0, 1] intensity normalization (port of
+`echoflow.ops.normalize`; reference src/echonet_dataset.py:38-50,
+`zeroone_normalizer`: per-RGB-channel min/max over the whole video)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def zeroone_normalize(image_data: torch.Tensor) -> torch.Tensor:
+    """Device-side per-channel [0, 1] normalization; the channel axis is
+    axis 0, e.g. a (3, T, H, W) video."""
+    c = image_data.shape[0]
+    flat = image_data.reshape(c, -1)
+    flat = flat - flat.amin(dim=1, keepdim=True)
+    flat = flat / flat.amax(dim=1, keepdim=True)
+    return flat.reshape(image_data.shape)
+
+
+def zeroone_normalizer(image_data: np.ndarray) -> np.ndarray:
+    """Host version with the reference's contract, including the in-place
+    mutation of float input (read-only float input is copied first).
+
+    uint8 input (as it comes off the AVI decoder) returns a new float32
+    array through the numpy path that `echoflow.native` documents as
+    bit-identical to its C++ loop.
+    """
+    if image_data.dtype == np.uint8:
+        c = image_data.shape[0]
+        flat = image_data.reshape(c, -1).astype(np.float32)
+        lo = flat.min(axis=1, keepdims=True)
+        hi = flat.max(axis=1, keepdims=True)
+        return ((flat - lo) / (hi - lo)).reshape(image_data.shape).astype(np.float32)
+    norm = image_data
+    if not norm.flags.writeable:
+        norm = norm.copy()
+    shape = norm.shape
+    norm = norm.reshape(3, -1)
+    norm -= np.min(norm, axis=1).reshape(3, 1)
+    norm /= np.max(norm, axis=1).reshape(3, 1)
+    return norm.reshape(shape)

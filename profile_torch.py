@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where the time of echoflow_torch's main path goes on one NVIDIA GPU.
+
+    python3 profile_torch.py [--videos 3] [--dtype float32|bfloat16] [--out PATH]
+
+Runs the engine of chip_smoke.py (full-width R(2+1)D-18, seeded weights,
+5 shifts, step 1, SIMPLE fusion, 176-frame 112x112 uint8 videos) once to
+warm up, then under torch.profiler, and prints one JSON line: wall time,
+device busy time and idle share, device time by layer and by kernel.
+
+A layer is a `record_function` range of the engine (`echoflow_torch.<layer>`,
+see echoflow_torch/infer/pipeline.py): each device kernel or copy counts
+for the innermost range around the host call that launched it. The videos
+are dispatched ahead from this thread with `segment_video_async` (what
+`segment_videos` does from a worker thread), so every launch is recorded
+under its range. The port's own kernels are launched through ctypes, which
+the profiler does not link to a host call; their device time counts for
+the range of the wrapper that alone launches them (`OWN_KERNELS`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import nvidia_smi_line, smoke_weights
+from echoflow_torch.data.synthetic import make_beating_video
+from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
+from echoflow_torch.ops import _build
+
+RANGE_PREFIX = "echoflow_torch."
+UNATTRIBUTED = "(outside any range)"
+UNLINKED = "(not linked to a host call)"
+# Kernel name of each ctypes-launched kernel -> the range its wrapper runs in.
+OWN_KERNELS = {"decoder_heads_kernel": "decoder_tail"}
+
+
+def layer_of(evt) -> str:
+    """The innermost `echoflow_torch.*` range around a host event."""
+    while evt is not None:
+        if evt.name.startswith(RANGE_PREFIX):
+            return evt.name[len(RANGE_PREFIX):]
+        evt = evt.cpu_parent
+    return UNATTRIBUTED
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--videos", type=int, default=3)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch: needs an NVIDIA GPU")
+    _build.build_all()
+    engine = VideoSegmenter(smoke_weights(), dtype=getattr(torch, args.dtype))
+    videos = [make_beating_video(num_frames=176, period=38.0 + 6 * i, seed=i + 1)
+              .video.astype(np.uint8) for i in range(args.videos)]
+    engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handles = [engine.segment_video_async(v, num_clips=5, step=1, fuse_method="simple")
+                   for v in videos]
+        masks = [_unpackbits(p.numpy(), width)[:length] for p, (length, width) in handles]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    assert len(masks) == len(videos) and masks[0].shape == (176, 112, 112)
+
+    layers, linked, kernels = {}, {}, {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CPU:
+            for k in evt.kernels:   # device work launched by this host event
+                ms = k.duration / 1e3
+                layers[layer_of(evt)] = layers.get(layer_of(evt), 0.0) + ms
+                linked[k.name] = linked.get(k.name, 0.0) + ms
+        elif not evt.name.startswith(RANGE_PREFIX):   # not a range's GPU mirror
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time_total / 1e3
+    for name, ms in kernels.items():
+        unlinked = ms - linked.get(name, 0.0)
+        if unlinked > 1e-6:   # beyond float round-off of the sums
+            layer = next((v for k, v in OWN_KERNELS.items() if k in name), UNLINKED)
+            layers[layer] = layers.get(layer, 0.0) + unlinked
+    busy_ms = sum(kernels.values())
+    by_name = {}   # long template names, summed on a readable prefix
+    for name, ms in kernels.items():
+        by_name[name[:100]] = by_name.get(name[:100], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        "card": nvidia_smi_line(), "dtype": args.dtype, "videos": len(videos),
+        "frames": 176 * len(videos), "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(top),
+    }))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": nvidia_smi_line(), "layers_ms": layers, "kernels_ms": kernels},
+                      f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
