@@ -1,5 +1,6 @@
-"""Synthetic echocardiogram video (numpy copy of
-`echoflow.data.synthetic.make_beating_video`).
+"""Synthetic echocardiogram videos and training samples (numpy copy of
+`echoflow.data.synthetic`: `make_beating_video`, `make_training_sample`,
+`make_ed_es_only_sample`).
 
 A beating ellipse (the LV) with speckle texture, intensity falloff and a
 known ED/ES ground truth: enough structure for the full pipeline
@@ -62,3 +63,59 @@ def make_beating_video(
             es.append(t)
     video = np.stack([frames, frames, frames]).astype(np.float32)
     return SyntheticBeat(video, masks, np.asarray(ed), np.asarray(es))
+
+
+def _sample_beat(clip_length, height, width, seed):
+    """The sample generators' shared draw: a 3-clip-long beating video with
+    random period, contraction and heart size, and its first ED frame."""
+    rng = np.random.RandomState(seed)
+    period = float(rng.uniform(1.2, 2.0) * clip_length)
+    # Contraction strength and heart size vary from sample to sample, so a
+    # model trained on them sees a range of ejection fractions.
+    amplitude = float(rng.uniform(3.5, 11.0))
+    base_radius = float(rng.uniform(17.0, 24.0))
+    beat = make_beating_video(num_frames=clip_length * 3, height=height, width=width,
+                              period=period, seed=seed, amplitude=amplitude,
+                              base_radius=base_radius)
+    return rng, beat, int(beat.ed_frames[0])
+
+
+def make_training_sample(clip_length: int = 32, height: int = 112, width: int = 112,
+                         seed: int = 0):
+    """One CLAS-FV training sample: a clip covering ED -> ES with labels.
+    Returns a dict: video (3, T, H, W) normalized float32, ed_label /
+    es_label (H, W) uint8, ed_idx / es_idx ints."""
+    from echoflow_torch.ops.normalize import zeroone_normalizer
+
+    _, beat, ed = _sample_beat(clip_length, height, width, seed)
+    es = int(beat.es_frames[beat.es_frames > ed][0])
+    start = max(0, min(ed, beat.video.shape[1] - clip_length))
+    video = beat.video[:, start:start + clip_length].copy()
+    return {
+        "video": zeroone_normalizer(video),
+        "ed_label": beat.masks[ed],
+        "es_label": beat.masks[es],
+        "ed_idx": ed - start,
+        "es_idx": min(es - start, clip_length - 1),
+    }
+
+
+def make_ed_es_only_sample(clip_length: int = 32, height: int = 112, width: int = 112,
+                           seed: int = 0):
+    """One ed-or-es-only training sample (the two-clip recipe): a clip whose
+    random window covers the ED frame and one covering the ES frame, each
+    with the labeled frame's index within its own clip. Returns a dict:
+    ed_video / es_video (3, T, H, W) normalized, ed_label / es_label (H, W)
+    uint8, ed_idx / es_idx ints."""
+    from echoflow_torch.data.echonet import random_start_given_mid_point
+    from echoflow_torch.ops.normalize import zeroone_normalizer
+
+    rng, beat, ed = _sample_beat(clip_length, height, width, seed)
+    es = int(beat.es_frames[beat.es_frames > ed][0])
+    out = {"ed_label": beat.masks[ed], "es_label": beat.masks[es]}
+    for name, mid in (("ed", ed), ("es", es)):
+        start, _ = random_start_given_mid_point(mid, beat.video.shape[1], clip_length, rng)
+        out[name + "_video"] = zeroone_normalizer(
+            beat.video[:, start:start + clip_length].copy())
+        out[name + "_idx"] = mid - start
+    return out

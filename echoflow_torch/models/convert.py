@@ -14,7 +14,10 @@ names that `models/r2plus1d.py` uses. Layouts:
                                         running_var.
 
 A folded tree (`fold_variables` output: params only, biased convs) converts
-to the folded model's state dict.
+to the folded model's state dict. `variables_from_state_dict` is the
+inverse (state dict -> flax tree), also for trees shaped like `params`
+alone, such as Adam's moments. `load_kinetics_backbone` grafts a stock
+torchvision `r2plus1d_18` state dict onto the backbone.
 """
 
 from __future__ import annotations
@@ -78,14 +81,19 @@ def _vec(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, np.float32))
 
 
-def state_dict_from_variables(variables: Mapping) -> dict:
+def state_dict_from_variables(variables: Mapping, params_only: bool = False) -> dict:
     """`echoflow` flax variables (numpy or jax leaves) -> the port's state
     dict (float32 CPU tensors). Unfolded trees must carry `batch_stats`;
-    a tree without them is taken as folded. Raises on a missing layer and
-    on a leaf that nothing consumed, so drift cannot pass silently."""
-    params = variables["params"]
-    stats = variables.get("batch_stats")
-    folded = stats is None
+    a tree without them is taken as folded. With `params_only=True`,
+    `variables` is an unfolded `params` tree alone (such as Adam's moments)
+    and the result holds the parameters only. Raises on a missing layer
+    and on a leaf that nothing consumed, so drift cannot pass silently."""
+    if params_only:
+        params, stats, folded = variables, {}, False
+    else:
+        params = variables["params"]
+        stats = variables.get("batch_stats")
+        folded = stats is None
     used = set()
     out: dict = {}
 
@@ -102,8 +110,10 @@ def state_dict_from_variables(variables: Mapping) -> dict:
             if folded:
                 continue
             for part, coll, leaf in _BN_PARTS:
-                out[f"{prefix}.{part}"] = _vec(take(coll, path + (leaf,)))
-            out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+                if coll == "params" or not params_only:
+                    out[f"{prefix}.{part}"] = _vec(take(coll, path + (leaf,)))
+            if not params_only:
+                out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
         elif kind == "conv":
             out[f"{prefix}.weight"] = _conv_weight(take("params", path + ("kernel",)))
             if _node(params, path + ("bias",)) is not None:
@@ -141,3 +151,107 @@ def load_reference_state_dict(path: str) -> dict:
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state_dict = payload["model"] if "model" in payload else payload
     return strip_module_prefix(state_dict)
+
+
+def _kernel(w) -> np.ndarray:
+    """Conv3d weight (O, I, D, H, W) -> flax kernel (D, H, W, I, O)."""
+    return np.ascontiguousarray(np.transpose(_np(w), (2, 3, 4, 1, 0)))
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy().astype(np.float32) if isinstance(v, torch.Tensor) \
+        else np.asarray(v, np.float32)
+
+
+def variables_from_state_dict(state_dict: Mapping, params_only: bool = False) -> dict:
+    """The port's state dict -> `echoflow` flax variables with numpy
+    leaves: the inverse of `state_dict_from_variables`. A state dict
+    without BatchNorm keys is taken as folded. With `params_only=True` the
+    state dict holds parameters alone (the tree of Adam's moments, keyed by
+    parameter name) and the result is the `params` tree. Raises on a
+    missing key and on a key that nothing consumed."""
+    folded = not params_only and not any(k.endswith(".running_mean") for k in state_dict)
+    stats_too = not (folded or params_only)
+    used = set()
+    tree: dict = {"params": {}, "batch_stats": {}}
+
+    def take(key):
+        if key not in state_dict:
+            raise KeyError(f"missing {key}")
+        used.add(key)
+        return state_dict[key]
+
+    def put(coll, path, value):
+        node = tree[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    for prefix, kind, path in _key_plan():
+        if kind == "bn":
+            if folded:
+                continue
+            for part, coll, leaf in _BN_PARTS:
+                if coll == "params" or stats_too:
+                    put(coll, path + (leaf,), _np(take(f"{prefix}.{part}")))
+            if stats_too and f"{prefix}.num_batches_tracked" in state_dict:
+                used.add(f"{prefix}.num_batches_tracked")
+        elif kind == "conv":
+            put("params", path + ("kernel",), _kernel(take(f"{prefix}.weight")))
+            if f"{prefix}.bias" in state_dict:
+                put("params", path + ("bias",), _np(take(f"{prefix}.bias")))
+        elif kind == "fc":
+            put("params", ("fc_kernel",), np.ascontiguousarray(_np(take(f"{prefix}.weight")).T))
+            put("params", ("fc_bias",), _np(take(f"{prefix}.bias")))
+        else:  # comb1
+            put("params", ("comb1_kernel",), _kernel(take(f"{prefix}.weight")))
+            put("params", ("comb1_bias",), _np(take(f"{prefix}.bias")))
+    unused = [k for k in state_dict if k not in used]
+    if unused:
+        raise KeyError(f"unconverted keys: {unused[:5]}")
+    if params_only:
+        return tree["params"]
+    return tree if stats_too else {"params": tree["params"]}
+
+
+BACKBONE_PREFIX = "r2plus1d_model."
+
+
+def convert_kinetics_backbone(state_dict: Mapping, base_state_dict: Mapping) -> dict:
+    """Backbone-only initialization from a stock torchvision `r2plus1d_18`
+    Kinetics-400 state dict (keys `stem.*`, `layer{1-4}.*`, `fc.*`, maybe
+    under a DataParallel `module.` prefix): the reference's recipe, which
+    fine-tunes `r2plus1d_18(pretrained=True)` with fresh decoder and heads
+    (src/model/R2plus1D_18_MotionNet.py:13). Returns a new state dict:
+    `base_state_dict` with every `r2plus1d_model.*` entry replaced. Raises
+    on a key outside the backbone, a shape mismatch, or a backbone entry
+    the checkpoint does not cover."""
+    out = dict(base_state_dict)
+    given = set()
+    for key, value in strip_module_prefix(state_dict).items():
+        name = BACKBONE_PREFIX + key
+        if name not in base_state_dict:
+            raise KeyError(f"non-backbone key {key!r} in state dict: a full reference "
+                           "checkpoint loads with load_reference_state_dict")
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(base_state_dict[name].shape):
+            raise ValueError(f"shape mismatch at {key}: checkpoint {tuple(value.shape)} "
+                             f"vs model {tuple(base_state_dict[name].shape)}")
+        out[name] = value.to(base_state_dict[name].dtype).clone()
+        given.add(name)
+    missing = [k for k in base_state_dict if k.startswith(BACKBONE_PREFIX) and k not in given
+               and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise ValueError(f"Kinetics state dict does not cover the full backbone; "
+                         f"missing e.g. {missing[:5]}")
+    return out
+
+
+def load_kinetics_backbone(path: str, base_state_dict: Mapping) -> dict:
+    """A stock torchvision r2plus1d_18 Kinetics `.pth` (a bare state dict,
+    or one under 'state_dict' or 'model') grafted onto `base_state_dict`."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("state_dict", "model"):
+        if isinstance(payload, dict) and wrapper in payload:
+            payload = payload[wrapper]
+    return convert_kinetics_backbone(payload, base_state_dict)

@@ -31,6 +31,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from echoflow_torch.models.fast_forward import merged_projections
 from echoflow_torch.ops.resize import trilinear_resize
@@ -43,9 +44,32 @@ def midplanes(in_ch: int, out_ch: int) -> int:
     return (in_ch * out_ch * 3 * 3 * 3) // (in_ch * 3 * 3 + 3 * out_ch)
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """`nn.BatchNorm3d` with flax's running-variance update.
+
+    In training mode it normalizes with the batch mean and the biased batch
+    variance, as both frameworks do, and moves the running statistics by
+    `momentum` 0.1 (flax momentum 0.9) toward the batch mean and the
+    *biased* batch variance, as flax does. torch's own module updates
+    `running_var` with the unbiased variance, n/(n-1) larger, which at the
+    deep layers' small n (8 values per channel at layer4 for a
+    (2, 3, 8, 32, 32) batch) is 8/7. Eval mode is torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _bn(ch: int, folded: bool) -> nn.Module:
     # torch momentum 0.1 is flax momentum 0.9 (running-stat update weight).
-    return nn.Identity() if folded else nn.BatchNorm3d(ch, eps=BN_EPS, momentum=0.1)
+    return nn.Identity() if folded else BatchNorm3d(ch, eps=BN_EPS, momentum=0.1)
 
 
 def _conv2plus1d(cin, cout, mid, stride, folded):
@@ -116,7 +140,9 @@ class R2Plus1DMotionSegNet(nn.Module):
         motion (N, 4, T, H, W) float32, tanh-bounded.
 
     The forward computes in the dtype of the module's parameters (cast the
-    module with `.to(torch.bfloat16)` for the bf16 path).
+    module with `.to(torch.bfloat16)` for the bf16 path). It is also the
+    training forward (autograd, train-mode BatchNorm); the decoder-tail
+    kernel has no backward and serves inference only, as in echoflow.
     """
 
     def __init__(self, folded: bool = False):

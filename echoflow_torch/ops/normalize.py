@@ -40,3 +40,12 @@ def zeroone_normalizer(image_data: np.ndarray) -> np.ndarray:
     norm -= np.min(norm, axis=1).reshape(3, 1)
     norm /= np.max(norm, axis=1).reshape(3, 1)
     return norm.reshape(shape)
+
+
+def one_hot_channels(label: torch.Tensor, num_classes: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """(N, 1, H, W) integer labels -> (N, num_classes, H, W) one-hot float
+    (reference `convert_to_1hot`, src/loss_functions.py:123-134). A value
+    outside [0, num_classes) gives an all-zero vector, as `jax.nn.one_hot`."""
+    classes = torch.arange(num_classes, device=label.device).reshape(1, num_classes, 1, 1)
+    return (label.long() == classes).to(dtype)

@@ -1,4 +1,5 @@
-"""CUDA kernels of echoflow_torch against their plain versions, on the card.
+"""CUDA kernels of echoflow_torch against their plain versions, and the
+train step on the card against the CPU port.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. This file imports neither
 jax nor echoflow, so on a machine without them it runs with
@@ -78,3 +79,120 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
         # argmax near-ties between two fp32 backends may flip a pixel.
         assert (a != b).mean() <= 1e-3
     assert decoder_heads.launches > before
+
+
+WARP_SHAPES = [(3, 5, 15, 17), (2, 1, 1, 9), (1, 2, 31, 1), (8, 4, 112, 112),
+               (8, 3, 112, 112), (124, 3, 112, 112)]
+
+
+def _warp_inputs(shape, seed=0):
+    """Image, output gradient and coordinates on the card; offsets reach
+    far past the border, and some coordinates sit exactly on the last
+    row and column."""
+    n, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.rand(shape, device="cuda", generator=g)
+    grad = torch.randn(shape, device="cuda", generator=g)
+    px = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * w - 0.5
+    py = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * h - 0.5
+    px[:, ::3, ::4] = w - 1.0
+    py[:, ::4, ::3] = h - 1.0
+    return image, grad, px, py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_kernels_match_plain(cuda, shape):
+    """K2 and K4 repeat the plain versions' elementwise arithmetic in the
+    same order, so they are bitwise equal. K3 adds with fp32 atomics, in
+    an order that changes from run to run: it stays within the per-element
+    bound of `image_grad_tolerance`, of the plain version and of itself."""
+    from echoflow_torch.ops import warp_kernel as wk
+
+    image, grad, px, py = _warp_inputs(shape)
+    before = (wk.warp_forward.launches, wk.warp_image_grad.launches,
+              wk.warp_coord_grad.launches)
+    out = wk.warp_forward(image, px, py)
+    d_img = wk.warp_image_grad(grad, px, py)
+    d_img2 = wk.warp_image_grad(grad, px, py)
+    d_px, d_py = wk.warp_coord_grad(image, grad, px, py)
+    torch.cuda.synchronize()
+    assert (wk.warp_forward.launches, wk.warp_image_grad.launches,
+            wk.warp_coord_grad.launches) == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert torch.equal(out, wk.reference_warp_forward(image, px, py))
+    r_px, r_py = wk.reference_warp_coord_grad(image, grad, px, py)
+    assert torch.equal(d_px, r_px) and torch.equal(d_py, r_py)
+    tol = wk.image_grad_tolerance(grad, px, py)
+    assert bool(((d_img - wk.reference_warp_image_grad(grad, px, py)).abs() <= tol).all())
+    assert bool(((d_img - d_img2).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_warp_autograd_launches_each_kernel_only_when_needed(cuda):
+    from echoflow_torch.ops import warp_kernel as wk
+
+    image, grad, px, py = _warp_inputs((2, 3, 16, 16))
+    px.requires_grad_()
+    py.requires_grad_()
+    before = wk.warp_image_grad.launches, wk.warp_coord_grad.launches
+    (wk.warp_coords(image, px, py) * grad).sum().backward()   # image needs no grad
+    assert (wk.warp_image_grad.launches, wk.warp_coord_grad.launches) == \
+        (before[0], before[1] + 1)
+    image.requires_grad_()
+    (wk.warp_coords(image, px, py) * grad).sum().backward()
+    assert (wk.warp_image_grad.launches, wk.warp_coord_grad.launches) == \
+        (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_warp_kernels_reject_what_they_cannot_take(cuda):
+    from echoflow_torch.ops import warp_kernel as wk
+
+    image, grad, px, py = _warp_inputs((2, 3, 8, 8))
+    with pytest.raises(ValueError):
+        wk.warp_forward(image.double(), px.double(), py.double())
+    with pytest.raises(ValueError):
+        wk.warp_forward(image, px.transpose(1, 2), py)   # not contiguous
+    with pytest.raises(ValueError):
+        wk.warp_coord_grad(image, grad[:, :2].contiguous(), px, py)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu_port(cuda):
+    """One fused step at (2, 3, 8, 32, 32) on synthetic echo clips from the
+    same seeded state, the limits of `chip_smoke.py` phase 6: loss within
+    1e-5 relative, all gradients within 5e-3 and each leaf's within 1e-2 in
+    relative L2 (leaves that are 0 in exact arithmetic, below 1e-4 of the
+    largest, stay there). fp32 rounding on both sides, cuDNN's and the
+    CPU's conv algorithms and K3's atomics differ; dropping K3 from the
+    label warps moves the worst leaf by 0.61. The inputs are echo-like on
+    purpose: on a uniform-noise video a one-ulp shift of a coordinate
+    across an integer changes the warp's slope by O(1), and the CPU port's
+    own float32 step is 9.5e-3 from its float64 step (1.2e-3 here)."""
+    from echoflow_torch.train.loop import TrainConfig, create_train_state, make_train_step
+    from echoflow_torch.ops import warp_kernel as wk
+    from train_clasfv_torch import synthetic_batches
+
+    n, t, h = 2, 8, 32
+    host = next(synthetic_batches(n, t, h, 1, seed=11))
+    batch = {k: torch.as_tensor(v) for k, v in host.items()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = TrainConfig(clip_length=t, image_size=(h, h), batch_size=n)
+        state = create_train_state(3, cfg, device=dev)
+        before = wk.warp_forward.launches
+        state, m = make_train_step()(state, {k: v.to(dev) for k, v in batch.items()})
+        if dev == "cuda":
+            assert wk.warp_forward.launches == before + 2 * (t - 1)
+        out[dev] = (float(m["loss"]), {k: p.grad.detach().double().cpu()
+                                       for k, p in state.model.named_parameters()})
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    flat = lambda grads: torch.cat([grads[k].reshape(-1) for k in gh])
+    assert float((flat(gc) - flat(gh)).norm() / flat(gh).norm()) <= 5e-3
+    top = max(float(g.norm()) for g in gh.values())
+    for k, g in gh.items():
+        if float(g.norm()) > 1e-4 * top:
+            assert float((gc[k] - g).norm() / g.norm()) <= 1e-2, k
+        else:
+            assert float(gc[k].norm()) <= 1e-4 * top, k

@@ -1,9 +1,9 @@
-"""echoflow_torch, chip_smoke.py and profile_torch.py import neither jax
-nor echoflow.
+"""echoflow_torch, chip_smoke.py, profile_torch.py and
+train_clasfv_torch.py import neither jax nor echoflow.
 
 A subprocess blocks `jax`, `jaxlib`, `flax` and `echoflow` (the exact name
 and its submodules, not `echoflow_torch`) with a meta-path finder, then
-imports every module of the port and the two scripts."""
+imports every module of the port and the three scripts."""
 
 import pathlib
 import subprocess
@@ -37,7 +37,8 @@ for path in sys.argv[1:]:
     name = path.rsplit("/", 1)[-1][:-3]
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module   # profile_torch imports chip_smoke
+    sys.modules[name] = module   # profile_torch imports chip_smoke, which imports
+                                 # train_clasfv_torch
     spec.loader.exec_module(module)
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
@@ -53,7 +54,7 @@ print(len(names))
 
 def test_port_imports_no_jax_and_no_echoflow():
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(REPO / "chip_smoke.py"),
-                          str(REPO / "profile_torch.py")],
+                          str(REPO / "profile_torch.py"), str(REPO / "train_clasfv_torch.py")],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # every subpackage and module was walked, not just the top package

@@ -10,18 +10,22 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from echoflow.models.convert import convert_state_dict
+from echoflow.models.convert import convert_kinetics_backbone, convert_state_dict
 from echoflow.models.fold_bn import fold_variables
 from echoflow.models.r2plus1d import R2Plus1DMotionSegNet as FlaxNet, init_variables
 from echoflow.models.r2plus1d import midplanes as flax_midplanes
 
 from echoflow_torch.models.convert import (
+    BACKBONE_PREFIX,
+    load_kinetics_backbone,
     load_reference_state_dict,
     state_dict_from_variables,
     strip_module_prefix,
+    variables_from_state_dict,
 )
 from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
 from echoflow_torch.models.r2plus1d import (
+    BatchNorm3d,
     R2Plus1DMotionSegNet,
     create_model,
     midplanes,
@@ -157,3 +161,84 @@ def test_folded_module_matches_unfolded(port_state):
     # Folding reassociates (x*W)*s as x*(W*s): fp32 rounding only.
     for u, f in zip(a, b):
         np.testing.assert_allclose(f.numpy(), u.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _assert_trees_equal(got, want):
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    assert set(got) == set(want)
+    for path, arr in want.items():
+        np.testing.assert_array_equal(got[path], arr, err_msg="/".join(path))
+
+
+def test_variables_from_state_dict_inverts_the_converter(flax_variables, port_state):
+    """State dict -> flax tree is the exact inverse, for unfolded and folded
+    trees and for a tree shaped like `params` alone (Adam's moments)."""
+    _assert_trees_equal(variables_from_state_dict(port_state), flax_variables)
+    params = flax_variables["params"]
+    moments = state_dict_from_variables(params, params_only=True)
+    assert set(moments) == {k for k, _ in R2Plus1DMotionSegNet().named_parameters()}
+    _assert_trees_equal(variables_from_state_dict(moments, params_only=True), params)
+    folded = jax.tree.map(np.asarray, fold_variables(flax_variables))
+    _assert_trees_equal(variables_from_state_dict(state_dict_from_variables(folded)), folded)
+    with pytest.raises(KeyError, match="unconverted"):
+        variables_from_state_dict({**port_state, "extra.weight": torch.zeros(1)})
+
+
+def test_load_kinetics_backbone_equals_echoflows(tmp_path, flax_variables, port_state):
+    """A stock torchvision r2plus1d_18 state dict (the backbone's keys
+    without the `r2plus1d_model.` prefix, made here from other weights)
+    replaces the backbone and the unused fc and leaves the heads: the same
+    result as echoflow's `convert_kinetics_backbone`."""
+    other = state_dict_from_variables(_randomize_bn(
+        init_variables(jax.random.PRNGKey(1), FlaxNet(), (1, 3, 8, 16, 16)), seed=1))
+    stock = {k[len(BACKBONE_PREFIX):]: v for k, v in other.items()
+             if k.startswith(BACKBONE_PREFIX)}
+    path = tmp_path / "r2plus1d_18.pth"
+    torch.save(stock, path)
+    got = load_kinetics_backbone(str(path), port_state)
+    want = state_dict_from_variables(convert_kinetics_backbone(stock, flax_variables))
+    assert set(got) == set(port_state)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["segmentation_head.weight"], port_state["segmentation_head.weight"])
+    assert torch.equal(got["r2plus1d_model.stem.0.weight"], other["r2plus1d_model.stem.0.weight"])
+
+    torch.save(dict(stock, **{"segmentation_head.weight": torch.zeros(1)}), path)
+    with pytest.raises(KeyError, match="non-backbone"):
+        load_kinetics_backbone(str(path), port_state)
+    partial = {k: v for k, v in stock.items() if not k.startswith("layer4")}
+    torch.save(partial, path)
+    with pytest.raises(ValueError, match="full backbone"):
+        load_kinetics_backbone(str(path), port_state)
+
+
+def test_train_mode_batchnorm_updates_like_flax():
+    """Training-mode BatchNorm normalizes with the batch statistics and
+    moves the running statistics toward the batch mean and the *biased*
+    batch variance, as flax's BatchNorm(momentum=0.9) does. torch's own
+    module would use the unbiased variance, 8/7 larger here (8 values per
+    channel, the layer4 case of a (2, 3, 8, 32, 32) batch)."""
+    import flax.linen as fnn
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 5, 1, 2, 2).astype(np.float32) * 3 + 1
+    bn = BatchNorm3d(5, eps=1e-5, momentum=0.1).train()
+    with torch.no_grad():
+        bn.running_mean.uniform_(-1, 1)
+        bn.running_var.uniform_(0.5, 2)
+    mean0, var0 = bn.running_mean.numpy().copy(), bn.running_var.numpy().copy()
+    y = bn(torch.from_numpy(x)).detach().numpy()
+
+    flax_bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    xl = jnp.asarray(np.moveaxis(x, 1, -1))   # channels last
+    variables = {"params": {"scale": jnp.ones(5), "bias": jnp.zeros(5)},
+                 "batch_stats": {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)}}
+    yf, upd = flax_bn.apply(variables, xl, mutable=["batch_stats"])
+    np.testing.assert_allclose(y, np.moveaxis(np.asarray(yf), -1, 1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(upd["batch_stats"]["mean"]),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(upd["batch_stats"]["var"]),
+                               rtol=1e-6, atol=1e-7)
+    biased = x.var(axis=(0, 2, 3, 4))
+    np.testing.assert_allclose(bn.running_var.numpy(), 0.9 * var0 + 0.1 * biased, rtol=1e-5)
+    assert int(bn.num_batches_tracked) == 1

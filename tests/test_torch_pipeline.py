@@ -110,25 +110,70 @@ def _video(length, color):
     return video
 
 
+def _staple_margin64(stack, live, num_iters=30, init_pq=0.99999):
+    """log_a - log_b of binary STAPLE (`staple_fuse`'s EM) in float64 for
+    one frame's (R, H, W) rater stack with (R,) liveness."""
+    d, lv = stack.astype(np.float64), live.astype(np.float64)[:, None, None]
+    n_live = max(lv.sum(), 1.0)
+    prior = np.clip((lv * d).sum() / (n_live * d.shape[1] * d.shape[2]), 1e-5, 1 - 1e-5)
+    p = np.full(d.shape[0], init_pq)
+    q = np.full(d.shape[0], init_pq)
+    eps = 1e-7
+
+    def log_ab(p, q):
+        p3, q3 = p[:, None, None], q[:, None, None]
+        log_a = np.log(prior) + (lv * (d * np.log(p3 + eps)
+                                       + (1 - d) * np.log(1 - p3 + eps))).sum(0)
+        log_b = np.log(1 - prior) + (lv * ((1 - d) * np.log(q3 + eps)
+                                           + d * np.log(1 - q3 + eps))).sum(0)
+        return log_a, log_b
+
+    for _ in range(num_iters):
+        log_a, log_b = log_ab(p, q)
+        w = 1.0 / (1.0 + np.exp(log_b - log_a))
+        p = np.clip((w * d).sum((1, 2)) / (w.sum() + eps), eps, 1 - eps)
+        q = np.clip(((1 - w) * (1 - d)).sum((1, 2)) / ((1 - w).sum() + eps), eps, 1 - eps)
+    log_a, log_b = log_ab(p, q)
+    return log_a - log_b
+
+
 @pytest.mark.parametrize("color", [False, True], ids=["mono", "rgb"])
 @pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("length", [45, 64])
-def test_engine_masks_match_echoflow(engines, length, method, color):
+def test_engine_masks_match_echoflow(engines, length, method, color, monkeypatch):
     jax_engine, port = engines
     video = _video(length, color)
+    stacks = []
+    real_fuse = TP.fuse_frames
+    monkeypatch.setattr(TP, "fuse_frames", lambda stack, valid, **kw: stacks.append(
+        (stack.numpy().copy(), valid.numpy().copy())) or real_fuse(stack, valid, **kw))
     want = jax_engine.segment_video(video, num_clips=2, step=1, fuse_method=method)
     got = port.segment_video(video, num_clips=2, step=1, fuse_method=method)
     assert got.shape == want.shape == (length, 32, 32)
     assert 0.2 < want.mean() < 0.8
-    if method == "staple":
-        # The label stacks going into the fusion are identical (majority,
-        # SIMPLE and softmax masks match exactly), but STAPLE's EM sums
-        # float posteriors over H x W in another order than XLA: on frames
-        # whose raters split evenly, the posterior margin of a pixel can lie
-        # below those last-bit differences (6e-5 of the pixels at L=64).
-        assert (got != want).mean() <= 1e-4
-    else:
+    if method != "staple":
         np.testing.assert_array_equal(got, want)
+        return
+    # The label stacks going into the fusion are identical (majority, SIMPLE
+    # and softmax masks match exactly); STAPLE's masks differ on a few
+    # pixels. None of them is an exact posterior tie: in float64 the margin
+    # log_a - log_b there is -1.9e-3 or +3.6e-2 (of |log_a| ~ 7). Near
+    # convergence p and q sit within a few float32 ulps of 1, so the float32
+    # EM's log(1 - p + 1e-7) carries errors far larger than such margins,
+    # and the sum order of each framework decides. At every differing pixel
+    # the port's decision is the float64 one, echoflow's is not: a float32
+    # rounding of echoflow's STAPLE, not a fault of the port.
+    (stack, valid), = stacks
+    differ = []
+    for t, y, x in np.argwhere(got != want):
+        live = valid[t].astype(bool)
+        assert live.sum() > 1, f"frame {t} has one live rater (copied through) and differs"
+        margin = _staple_margin64(stack[t][live], valid[t][live])
+        differ.append((int(t), int(y), int(x), float(margin[y, x])))
+        assert got[t, y, x] == (margin[y, x] >= 0), differ[-1]
+    print(f"STAPLE L={length} {'rgb' if color else 'mono'}: {len(differ)} pixels differ from "
+          f"echoflow (frame, y, x, float64 margin): {differ}")
+    assert len(differ) <= 1e-4 * got.size
 
 
 def test_mono_and_single_channel_paths_are_identical(engines):

@@ -1,0 +1,221 @@
+"""CLAS-FV joint training on an NVIDIA GPU (the port of `train_clasfv.py`).
+
+Same recipe and flags as `train_clasfv.py`: random ED..ES 32-frame
+windows, Adam lr 1e-4 with the drop to 1e-5 at epoch 3, batch 4, 10
+epochs, best-validation checkpoint plus the latest one at `<out>.last`.
+The warps of the loss run the port's CUDA kernels on the card.
+
+    python train_clasfv_torch.py --synthetic --steps 50 [--device cuda|cpu]
+    python train_clasfv_torch.py --synthetic --resume save_models/clasfv_torch.pth
+
+Training on EchoNet-Dynamic (`--data`) waits for the port's data slice,
+and bf16 training (`--compute-dtype bf16`) for its own study; both raise
+(see ROADMAP.md). fp32 is the default and turns TF32 off for cuDNN and
+matmul.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+_SAMPLE_CACHE: dict = {}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Train CLAS-FV with echoflow_torch")
+    ap.add_argument("--data", type=str, default=None, help="EchoNet-Dynamic root")
+    ap.add_argument("--folds", type=str, default=None,
+                    help="dir with stanford_{train,valid}_sampled_indices pickles "
+                         "(EchoNet only)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="train on synthetic beating-heart samples")
+    ap.add_argument("--recipe", choices=["clasfv", "ed_es_only"], default="clasfv",
+                    help="clasfv: joint ED..ES-window recipe; ed_es_only: two clips "
+                         "per sample, one covering ED and one ES")
+    ap.add_argument("--epoch-subsample", type=int, default=None,
+                    help="randomly subsample this many videos per epoch (EchoNet only)")
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=None, help="cap steps per epoch")
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--lr-drop-epoch", type=int, default=3)
+    ap.add_argument("--lr-after-drop", type=float, default=1e-5)
+    ap.add_argument("--clip-length", type=int, default=32)
+    ap.add_argument("--compute-dtype", choices=["fp32", "bf16"], default="fp32",
+                    help="fp32 only for now: bf16 training waits for its own study")
+    ap.add_argument("--image-size", type=int, default=112)
+    ap.add_argument("--out", type=str, default="save_models/clasfv_torch.pth")
+    ap.add_argument("--init-from", type=str, default=None,
+                    help="stock torchvision r2plus1d_18 Kinetics-400 .pth: initialize "
+                         "the backbone from it, heads stay fresh")
+    ap.add_argument("--resume", type=str, default=None,
+                    help="checkpoint to resume from: the port's .pth or an echoflow "
+                         ".pkl (model, optimizer, step, generator, epoch counter)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cache-samples", type=int, default=0,
+                    help="synthetic mode: pre-generate this many samples once and "
+                         "draw batches from the pool")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return ap.parse_args(argv)
+
+
+def should_save_best(val: float, best_val: float) -> bool:
+    """Only a finite validation loss strictly below the best so far wins."""
+    import math
+
+    return math.isfinite(val) and val < best_val
+
+
+def _collate(samples):
+    import numpy as np
+
+    return {
+        "video": np.stack([s["video"] for s in samples]).astype(np.float32),
+        "ed_label": np.stack([s["ed_label"] for s in samples]).astype(np.int32),
+        "es_label": np.stack([s["es_label"] for s in samples]).astype(np.int32),
+        "ed_idx": np.asarray([s["ed_idx"] for s in samples], np.int32),
+        "es_idx": np.asarray([s["es_idx"] for s in samples], np.int32),
+    }
+
+
+def synthetic_batches(batch_size, clip_length, image_size, steps, seed,
+                      cache_samples: int = 0, pool_seed_base: int = 0):
+    """Batches of `make_training_sample` (the seeds of `train_clasfv.py`).
+    With cache_samples > 0 a fixed pool is generated once and batches draw
+    from it; `pool_seed_base` keeps validation samples disjoint."""
+    import numpy as np
+
+    from echoflow_torch.data.synthetic import make_training_sample
+
+    if cache_samples:
+        key = (clip_length, image_size, cache_samples, pool_seed_base)
+        if key not in _SAMPLE_CACHE:
+            _SAMPLE_CACHE[key] = [make_training_sample(clip_length, image_size, image_size,
+                                                       seed=pool_seed_base + i)
+                                  for i in range(cache_samples)]
+        pool = _SAMPLE_CACHE[key]
+        rng = np.random.RandomState(seed)
+        for _ in range(steps):
+            yield _collate([pool[i] for i in rng.choice(len(pool), batch_size, replace=False)])
+        return
+    for step in range(steps):
+        yield _collate([make_training_sample(clip_length, image_size, image_size,
+                                             seed=pool_seed_base + seed + step * batch_size + i)
+                        for i in range(batch_size)])
+
+
+def synthetic_ed_es_batches(batch_size, clip_length, image_size, steps, seed,
+                            pool_seed_base: int = 0):
+    """Batches of `make_ed_es_only_sample` for the ed-or-es-only recipe."""
+    import numpy as np
+
+    from echoflow_torch.data.synthetic import make_ed_es_only_sample
+
+    for step in range(steps):
+        samples = [make_ed_es_only_sample(clip_length, image_size, image_size,
+                                          seed=pool_seed_base + seed + step * batch_size + i)
+                   for i in range(batch_size)]
+        yield {
+            "ed_video": np.stack([s["ed_video"] for s in samples]).astype(np.float32),
+            "es_video": np.stack([s["es_video"] for s in samples]).astype(np.float32),
+            "ed_label": np.stack([s["ed_label"] for s in samples]).astype(np.int32),
+            "es_label": np.stack([s["es_label"] for s in samples]).astype(np.int32),
+            "ed_idx": np.asarray([s["ed_idx"] for s in samples], np.int32),
+            "es_idx": np.asarray([s["es_idx"] for s in samples], np.int32),
+        }
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.data is not None or args.folds or args.epoch_subsample:
+        raise SystemExit("--data, --folds, --epoch-subsample: the EchoNet-Dynamic loader "
+                         "(AVI decoding with cv2) is not ported yet; it is the data slice of "
+                         "ROADMAP.md Queue 1. Use --synthetic.")
+    if args.compute_dtype == "bf16":
+        raise SystemExit("--compute-dtype bf16: bf16 training waits for its own study "
+                         "(echoflow's rejected it, benchmarks/bf16_train_study.json; see "
+                         "ROADMAP.md). Train in fp32.")
+    if not args.synthetic:
+        raise SystemExit("pass --synthetic (EchoNet-Dynamic training waits for the data slice)")
+
+    import numpy as np
+    import torch
+
+    from echoflow_torch.train.checkpoint import restore_train_state, save_checkpoint
+    from echoflow_torch.train.loop import (
+        TrainConfig, create_train_state, fit, make_ed_es_only_eval_step,
+        make_ed_es_only_train_step, make_eval_step, prefetch_to_device)
+
+    steps_per_epoch = args.steps or (7332 // args.batch_size)
+    cfg = TrainConfig(lr=args.lr, lr_drop_step=args.lr_drop_epoch * steps_per_epoch,
+                      lr_after_drop=args.lr_after_drop, clip_length=args.clip_length,
+                      image_size=(args.image_size, args.image_size),
+                      batch_size=args.batch_size)
+    state = create_train_state(args.seed, cfg, device=args.device)
+    start_epoch, best_val = 0, float("inf")
+    if args.init_from:
+        if args.resume:
+            raise SystemExit("--init-from and --resume are mutually exclusive "
+                             "(resume already carries weights)")
+        from echoflow_torch.models.convert import load_kinetics_backbone
+
+        state.model.load_state_dict(load_kinetics_backbone(args.init_from,
+                                                           state.model.state_dict()))
+        print(f"initialized backbone from Kinetics checkpoint {args.init_from}")
+    if args.resume:
+        state, extra = restore_train_state(args.resume, state)
+        start_epoch = int(extra.get("epoch", -1)) + 1
+        # The best-val watermark too, so a worse epoch after the resume
+        # cannot overwrite a better best checkpoint.
+        best_val = float(extra.get("val_loss", float("inf")))
+        print(f"resumed from {args.resume} at step {state.step}, starting epoch {start_epoch}")
+
+    ed_es_only = args.recipe == "ed_es_only"
+    eval_step = (make_ed_es_only_eval_step if ed_es_only else make_eval_step)()
+    step_factory = make_ed_es_only_train_step if ed_es_only else None
+    device = torch.device(args.device)
+
+    def epoch_batches(epoch, split):
+        n = args.steps or 20
+        # Validation draws from a disjoint seed range: a held-out population.
+        val = split != "train"
+        steps = max(2, n // 8) if val else n
+        seed = args.seed + epoch * 100_000 + (7_777 if val else 0)
+        base = 50_000_000 if val else 0
+        if ed_es_only:
+            return synthetic_ed_es_batches(args.batch_size, args.clip_length, args.image_size,
+                                           steps, seed=seed, pool_seed_base=base)
+        cache = (max(8, args.cache_samples // 8) if val else args.cache_samples) \
+            if args.cache_samples else 0
+        return synthetic_batches(args.batch_size, args.clip_length, args.image_size, steps,
+                                 seed=seed, cache_samples=cache, pool_seed_base=base)
+
+    for epoch in range(start_epoch, args.epochs):
+        tic = time.time()
+        state, _ = fit(state, epoch_batches(epoch, "train"), log_every=args.log_every,
+                       step_factory=step_factory)
+        val_losses, ed_d, es_d = [], [], []
+        for batch in prefetch_to_device(epoch_batches(epoch, "val"), device):
+            m = eval_step(state, batch)
+            val_losses.append(float(m["loss"]))
+            ed_d.append(float(m["ed_dice"]))
+            es_d.append(float(m["es_dice"]))
+        val = float(np.mean(val_losses)) if val_losses else float("nan")
+        print(f"epoch {epoch}: val loss {val:.4f} ED dice {np.mean(ed_d or [0]):.3f} "
+              f"ES dice {np.mean(es_d or [0]):.3f} ({time.time() - tic:.0f}s)")
+        extra = {"epoch": epoch, "val_loss": val, "seed": args.seed}
+        # A NaN validation is a diverged run, never a better one.
+        if should_save_best(val, best_val):
+            best_val = val
+            save_checkpoint(args.out, state, extra=extra)
+            print(f"saved checkpoint -> {args.out}")
+        # The latest state always, so a run whose validation never wins
+        # keeps its weights.
+        save_checkpoint(args.out + ".last", state, extra=extra)
+    return state
+
+
+if __name__ == "__main__":
+    main()
