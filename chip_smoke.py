@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits nonzero):
      PyTorch version on the same CUDA tensors at the main path's shapes
      (30 clips x 32 frames, sources 56/28/14/7 squared, 112x112 output),
      with and without motion; kernel and plain times (CUDA events,
-     median), and the kernel's bound on this card;
+     median), the kernel's bound on this card (CUDA cores, 3xTF32 tensor
+     cores, memory) and its share of that bound and of the earlier
+     all-fp32 CUDA-core bound;
   4. main path: a full-width R(2+1)D-18 MotionNet (seeded init, seg head
      x50 with a centred bias) in `VideoSegmenter(dtype=float32)`;
      `segment_videos` over 3 synthetic 176-frame 112x112 uint8 videos,
@@ -65,10 +67,14 @@ from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_eva
 from train_clasfv_torch import synthetic_batches
 
 # Peak rates of an H100 SXM (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
-K1_TOL = 1e-4          # fp32 on both sides; only the summation order differs
+# fp32 on both sides (comb2 as 3xTF32 on the tensor cores: ~fp32 accuracy);
+# summation order and the dropped lo*lo term differ.
+K1_TOL = 1e-4
+K1_WEIGHTS = dict(b1=(64,), w2=(64, 64), b2=(64,), ws=(64, 2), bs=(2,), wm=(64, 4), bm=(4,))
 MASK_TOL = 1e-4        # argmax near-ties between two fp32 decoders
 # K2 and K4 do the plain versions' elementwise arithmetic in the same order
 # with no contracted multiply-adds, so they are expected bitwise equal; the
@@ -117,21 +123,43 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def k1_bound(projs, with_motion):
-    """(bound_ms, bound_by, flops, bytes) of the decoder tail on these inputs: each
-    input read once, each output written once; per output pixel 8 FLOP per
-    source channel for the bilinear sum, 2 for +b1/ReLU, 2*64*64 for comb2,
-    2*64*2 for the seg head (+ 2*64*4 for the motion head)."""
+def k1_inputs():
+    """Phase 3's seeded K1 inputs: 30 clips x 32 frames, sources 56/28/14/7
+    squared, 64 channels, and the decoder weights."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    projs = [torch.randn(30, 32, s, s, 64, device="cuda", generator=g) * 0.2
+             for s in (56, 28, 14, 7)]
+    w = {k: torch.randn(*s, device="cuda", generator=g) * 0.3 for k, s in K1_WEIGHTS.items()}
+    return projs, w
+
+
+def k1_bound(projs, with_motion, out_hw=(112, 112)):
+    """The least time of the decoder tail on these inputs, on the pipes the
+    kernel uses: per output pixel, on the CUDA cores 8 FLOP per source
+    channel for the bilinear sum, 2 per channel for +b1/ReLU and 2*64*2 for
+    the seg head (+ 2*64*4 for the motion head); on the tensor cores the
+    2*64*64 FLOP of comb2 three times (3xTF32, the least-cost route to fp32
+    accuracy on this card); each input read once, each output written once.
+    The bound is the largest of the three times; `bounds` holds each, and
+    `fp32_cuda_cores_ms` the earlier bound: all the FLOP at the fp32
+    CUDA-core rate. Every one is computed from the inputs, none measured."""
     bsz, t = projs[0].shape[:2]
-    pixels = bsz * t * 112 * 112
+    pixels = bsz * t * out_hw[0] * out_hw[1]
     c = projs[0].shape[-1]
-    per_px = 8 * c * len(projs) + 2 * c + 2 * c * c + 2 * c * 2 + (2 * c * 4 if with_motion else 0)
-    flops = pixels * per_px
+    core_flops = pixels * (8 * c * len(projs) + 2 * c + 2 * c * 2
+                           + (2 * c * 4 if with_motion else 0))
+    comb2_flops = pixels * 2 * c * c
     nbytes = sum(p.numel() * 4 for p in projs) + (c + c * c + c + c * 2 + 2) * 4
     nbytes += pixels * (2 + (4 if with_motion else 0)) * 4
-    compute_ms, memory_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_by = "operations" if compute_ms >= memory_ms else "bytes"
-    return max(compute_ms, memory_ms), bound_by, flops, nbytes
+    times = {"operations": max(core_flops / PEAK_FP32_FLOPS, 3 * comb2_flops / PEAK_TF32_FLOPS),
+             "bytes": nbytes / PEAK_HBM_BYTES}
+    bound_by = max(times, key=times.get)
+    bounds = dict(cuda_cores_ms=core_flops / PEAK_FP32_FLOPS * 1e3,
+                  tensor_cores_ms=3 * comb2_flops / PEAK_TF32_FLOPS * 1e3,
+                  memory_ms=times["bytes"] * 1e3,
+                  fp32_cuda_cores_ms=(core_flops + comb2_flops) / PEAK_FP32_FLOPS * 1e3)
+    return dict(bound_ms=times[bound_by] * 1e3, bound_by=bound_by, bounds=bounds,
+                flops=core_flops + comb2_flops, nbytes=nbytes)
 
 
 def device_ms(fn, reps: int = 20, match: str | None = None):
@@ -351,11 +379,7 @@ def phase_train():
 
 def phase_k1():
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    projs = [torch.randn(30, 32, s, s, 64, device="cuda", generator=g) * 0.2
-             for s in (56, 28, 14, 7)]
-    shapes = dict(b1=(64,), w2=(64, 64), b2=(64,), ws=(64, 2), bs=(2,), wm=(64, 4), bm=(4,))
-    w = {k: torch.randn(*s, device="cuda", generator=g) * 0.3 for k, s in shapes.items()}
+    projs, w = k1_inputs()
     result = {}
     for with_motion in (False, True):
         got = decoder_heads(projs, **w, out_hw=(112, 112), with_motion=with_motion)
@@ -376,12 +400,17 @@ def phase_k1():
                                            with_motion=with_motion), reps=10)
         plain_ms = cuda_ms(lambda: reference_decoder_heads(
             projs, **w, out_hw=(112, 112), with_motion=with_motion), reps=3, warmup=1)
-        bound_ms, bound_by, flops, nbytes = k1_bound(projs, with_motion)
-        result[with_motion] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by)
+        b = k1_bound(projs, with_motion)
+        bb = b["bounds"]
+        result[with_motion] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
         log(f"K1 with_motion={with_motion}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+            f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+            f"(CUDA cores {bb['cuda_cores_ms']:.3f}, tensor cores 3xTF32 "
+            f"{bb['tensor_cores_ms']:.3f}, memory {bb['memory_ms']:.3f} ms), "
+            f"{b['bound_ms'] / ms:.1%} of it; fp32 CUDA-core bound "
+            f"{bb['fp32_cuda_cores_ms']:.3f} ms, {bb['fp32_cuda_cores_ms'] / ms:.1%} "
+            f"of it; {b['flops'] / ms / 1e9:.1f} TFLOP/s of useful work "
+            f"({b['flops'] / 1e9:.1f} GFLOP, {b['nbytes'] / 1e9:.3f} GB)")
     del projs
     torch.cuda.empty_cache()
     return result
@@ -491,6 +520,9 @@ def main():
         "plain_ms": main_variant["plain_ms"],
         "bound_ms": main_variant["bound_ms"],
         "bound_by": main_variant["bound_by"],
+        # Computed from the inputs, not measured: each pipe's least time and
+        # the earlier all-fp32-CUDA-core bound, kept for continuity.
+        "bounds": main_variant["bounds"],
         # No single PyTorch call computes upsample-sum + comb2 + heads.
         "library_ms": None,
         "ms_with_motion": k1[True]["ms"],

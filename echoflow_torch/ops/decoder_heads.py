@@ -15,9 +15,14 @@ signature of `fused_decoder_heads`:
   - for CUDA tensors it checks device, dtype, shape and contiguity and
     launches the kernel of `csrc/decoder_heads.cu`, or raises.
 
-`decoder_heads.launches` counts kernel launches. The kernel runs in fp32
-on CUDA cores; the Pallas kernel's bf16 operand rounding was a TPU MXU
-choice and is not carried over.
+`decoder_heads.launches` counts kernel launches. The kernel takes fp32 in
+and out: the upsample runs on CUDA cores, comb2 on the tensor cores as
+3xTF32 (y and W2 each split into TF32 hi + lo, three products), which
+keeps fp32 accuracy. The Pallas kernel's bf16 operand rounding was a TPU
+MXU choice and is not carried over. The host side here cuts each output
+row into tiles (`tile_plan`) and gives the kernel, per tile column, which
+source columns a tile touches and where each pixel's two columns sit in
+its column buffer (`x_plan`).
 """
 
 from __future__ import annotations
@@ -71,25 +76,78 @@ def _axis_table(src_len: int, dst_len: int, align_corners: bool):
     return np.stack([lo, hi], axis=1).astype(np.int32), np.stack([w_lo, w_hi], axis=1)
 
 
+KERNEL_TILE = 64   # output pixels of a tile, at most (wgmma's M)
+
+
+def tile_plan(x_idx, w_out: int, max_cols: int):
+    """(tile_w, cols): the kernel's tile width (output pixels of one row,
+    at most 64, tiles of a row as even as possible) and, per source, the
+    most source columns a tile touches, given each source's (W, 2) column
+    table. The width halves until the tile's columns fit the kernel's
+    column buffer of `max_cols` columns (the library's
+    `echoflow_decoder_heads_column_budget`; by width 1 a tile touches at
+    most 2 columns a source)."""
+    tile_w = -(-w_out // -(-w_out // KERNEL_TILE))
+    while True:
+        starts = np.arange(0, w_out, tile_w)
+        ends = np.minimum(starts + tile_w, w_out) - 1
+        cols = [int((idx[ends, 1] - idx[starts, 0]).max()) + 1 for idx in x_idx]
+        if sum(cols) <= max_cols or tile_w == 1:
+            return tile_w, cols
+        tile_w = (tile_w + 1) // 2
+
+
+def x_plan(xs, w_out: int, tile_w: int, cols):
+    """The kernel's x plan, (tiles of a row, S, 65, 4) int32: per tile
+    column and source, a head (first source column, columns touched, their
+    first place in the column buffer), then per pixel the places of its lo
+    and hi columns in the column buffer and the float32 bits of their
+    weights (from `_axis_table`, bitwise the plain version's); zeros past
+    the tile's pixels."""
+    n_seg = -(-w_out // tile_w)
+    cols_at = np.cumsum([0] + list(cols[:-1]))
+    plan = np.zeros((n_seg, len(xs), KERNEL_TILE + 1, 4), np.int32)
+    for s in range(n_seg):
+        x0, x_end = s * tile_w, min((s + 1) * tile_w, w_out)
+        for r, (idx, wts) in enumerate(xs):
+            first = idx[x0, 0]
+            plan[s, r, 0, :3] = first, idx[x_end - 1, 1] - first + 1, cols_at[r]
+            plan[s, r, 1:1 + x_end - x0, :2] = cols_at[r] + idx[x0:x_end] - first
+            plan[s, r, 1:1 + x_end - x0, 2:] = wts[x0:x_end].view(np.int32)
+    return plan
+
+
 @functools.lru_cache(maxsize=64)
 def _tables(sizes, out_hw, align_corners, device):
-    """Device tables (y_idx (S, H, 2) int32, y_w (S, H, 2) f32, x_idx
-    (S, W, 2) int32, x_w (S, W, 2) f32) for sources `sizes`."""
+    """The kernel's device tables for sources `sizes`: y_tab (S, H, 4)
+    int32, per output row the source rows (lo, hi) and the float32 bits of
+    their weights from `_axis_table`; `x_plan`; the tile width; and the
+    column buffer's size in columns."""
     h_out, w_out = out_hw
     ys = [_axis_table(hr, h_out, align_corners) for hr, _ in sizes]
     xs = [_axis_table(wr, w_out, align_corners) for _, wr in sizes]
-    return tuple(torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(device)
-                 for a in ([i for i, _ in ys], [w for _, w in ys],
-                           [i for i, _ in xs], [w for _, w in xs]))
+    tile_w, cols = tile_plan([idx for idx, _ in xs], w_out, _column_budget())
+    y_tab = np.stack([np.concatenate([idx, wts.view(np.int32)], axis=1) for idx, wts in ys])
+    return (torch.from_numpy(np.ascontiguousarray(y_tab)).to(device),
+            torch.from_numpy(x_plan(xs, w_out, tile_w, cols)).to(device), tile_w, sum(cols))
+
+
+def _library():
+    from echoflow_torch.ops import _build
+
+    return _build.load("decoder_heads")
+
+
+@functools.lru_cache(maxsize=1)
+def _column_budget() -> int:
+    return int(_library().echoflow_decoder_heads_column_budget())
 
 
 @functools.lru_cache(maxsize=1)
 def _kernel_fn():
-    from echoflow_torch.ops import _build
-
-    fn = _build.load("decoder_heads").echoflow_decoder_heads
+    fn = _library().echoflow_decoder_heads
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([ptr] * 4 + [i32] * 9 + [ptr] * 4 + [ptr] * 7 + [ptr] * 2
+    fn.argtypes = ([ptr] * 4 + [i32] * 11 + [ptr] * 2 + [ptr] * 7 + [ptr] * 2
                    + [i32] * 5 + [ptr])
     fn.restype = ctypes.c_int
     return fn
@@ -115,8 +173,9 @@ def _check_cuda_args(projs, weights, out_hw, with_motion):
     for name, shape in shapes.items():
         w = weights[name]
         if w.device != dev or w.dtype != torch.float32 or tuple(w.shape) != shape \
-                or not w.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}")
+                or not w.is_contiguous() or w.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 {shape} "
+                             f"tensor on {dev}")
     if out_hw[0] < 1 or out_hw[1] < 1:
         raise ValueError(f"bad out_hw {out_hw}")
 
@@ -139,7 +198,7 @@ def decoder_heads(projs, b1, w2, b2, ws, bs, wm=None, bm=None, out_hw=None,
     bsz, t = (int(v) for v in projs[0].shape[:2])
     dev = projs[0].device
     sizes = tuple((int(p.shape[2]), int(p.shape[3])) for p in projs)
-    y_idx, y_w, x_idx, x_w = _tables(sizes, (h_out, w_out), bool(align_corners), dev)
+    y_tab, plan, tile_w, n_cols = _tables(sizes, (h_out, w_out), bool(align_corners), dev)
     seg = torch.empty((bsz, t, h_out, w_out, 2), device=dev, dtype=torch.float32)
     mot = (torch.empty((bsz, t, h_out, w_out, 4), device=dev, dtype=torch.float32)
            if with_motion else None)
@@ -148,8 +207,7 @@ def decoder_heads(projs, b1, w2, b2, ws, bs, wm=None, bm=None, out_hw=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn()(
-            *ptrs, *dims, len(projs),
-            y_idx.data_ptr(), y_w.data_ptr(), x_idx.data_ptr(), x_w.data_ptr(),
+            *ptrs, *dims, len(projs), n_cols, tile_w, y_tab.data_ptr(), plan.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ws.data_ptr(), bs.data_ptr(),
             wm.data_ptr() if with_motion else None, bm.data_ptr() if with_motion else None,
             seg.data_ptr(), mot.data_ptr() if with_motion else None,

@@ -23,27 +23,64 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("with_motion", [True, False])
-@pytest.mark.parametrize("sizes", [(56, 28, 14, 7), (56, 7), (28,)])
-def test_decoder_heads_kernel_matches_plain(cuda, sizes, with_motion):
-    """The main path's source sizes with 2 clips (30 in the engine), and
-    fewer sources, with and without the motion head."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    projs = [torch.randn(2, 32, s, s, 64, device="cuda", generator=g) * 0.2 for s in sizes]
+def _k1_inputs(sizes, bt=(2, 32), scale=1.0, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    projs = [torch.randn(*bt, s, s, 64, device="cuda", generator=g) * (0.2 * scale)
+             for s in sizes]
     w = {k: torch.randn(*s, device="cuda", generator=g) * 0.3 for k, s in SHAPES.items()}
+    return projs, w
+
+
+def _check_k1(projs, w, out_hw, with_motion=True, align_corners=True):
     before = decoder_heads.launches
-    seg, mot = decoder_heads(projs, **w, out_hw=(112, 112), with_motion=with_motion)
+    seg, mot = decoder_heads(projs, **w, out_hw=out_hw, with_motion=with_motion,
+                             align_corners=align_corners)
     torch.cuda.synchronize()
     assert decoder_heads.launches == before + 1
-    rseg, rmot = reference_decoder_heads(projs, **w, out_hw=(112, 112),
-                                         with_motion=with_motion)
-    # fp32 on both sides; only the summation order differs.
+    rseg, rmot = reference_decoder_heads(projs, **w, out_hw=out_hw, with_motion=with_motion,
+                                         align_corners=align_corners)
+    # fp32 on both sides (comb2 as 3xTF32 on the tensor cores); the
+    # summation order and the dropped lo*lo term of comb2 differ.
     torch.testing.assert_close(seg, rseg, rtol=1e-4, atol=1e-4)
     if with_motion:
         torch.testing.assert_close(mot, rmot, rtol=1e-4, atol=1e-4)
     else:
         assert mot is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("with_motion", [True, False])
+@pytest.mark.parametrize("sizes", [(56, 28, 14, 7), (56, 7), (28,)])
+def test_decoder_heads_kernel_matches_plain(cuda, sizes, with_motion, align_corners):
+    """The main path's source sizes with 2 clips (30 in the engine), and
+    fewer sources, with and without the motion head, both corner modes."""
+    projs, w = _k1_inputs(sizes)
+    _check_k1(projs, w, (112, 112), with_motion, align_corners)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_tile", "one_frame", "inputs_x30", "three_tiles_a_row"])
+def test_decoder_heads_kernel_edge_cases(cuda, case):
+    """A 40x36 output fills 36 of a tile's 64 rows (1,440 pixels, not a
+    multiple of 64); B*T = 1 gives one frame; inputs x30 put |y| in
+    the tens, where the TF32 hi/lo split of y must still carry fp32; a
+    150-wide output has 3 tiles a row, so a warpgroup's tile column changes
+    every round."""
+    if case == "ragged_tile":
+        projs, w = _k1_inputs((20, 10, 5, 3), bt=(2, 3), seed=1)
+        _check_k1(projs, w, (40, 36), align_corners=False)
+        _check_k1(projs, w, (40, 36), with_motion=False)
+    elif case == "one_frame":
+        projs, w = _k1_inputs((56, 28, 14, 7), bt=(1, 1), seed=2)
+        _check_k1(projs, w, (112, 112))
+    elif case == "three_tiles_a_row":
+        projs, w = _k1_inputs((28, 14, 7), bt=(1, 4), seed=4)
+        _check_k1(projs, w, (24, 150))
+    else:
+        projs, w = _k1_inputs((56, 28, 14, 7), scale=30.0, seed=3)
+        assert float(reference_decoder_heads(projs, **w, out_hw=(112, 112))[0].abs().max()) > 10
+        _check_k1(projs, w, (112, 112))
 
 
 @pytest.mark.cuda
@@ -58,6 +95,16 @@ def test_decoder_heads_rejects_what_the_kernel_cannot_take(cuda):
     p = [torch.zeros(1, 2, 8, 8, 64, device="cuda", dtype=torch.bfloat16)]
     with pytest.raises(ValueError):
         decoder_heads(p, **w, out_hw=(16, 16))
+
+
+@pytest.mark.cuda
+def test_decoder_heads_rejects_a_fifth_source(cuda):
+    p = [torch.zeros(1, 2, s, s, 64, device="cuda") for s in (56, 28, 14, 7, 4)]
+    w = {k: torch.zeros(*s, device="cuda") for k, s in SHAPES.items()}
+    before = decoder_heads.launches
+    with pytest.raises(ValueError, match="1..4 sources"):
+        decoder_heads(p, **w, out_hw=(112, 112))
+    assert decoder_heads.launches == before
 
 
 @pytest.mark.cuda

@@ -32,6 +32,8 @@ from echoflow_torch.ops.decoder_heads import (
     _axis_table,
     decoder_heads,
     reference_decoder_heads,
+    tile_plan,
+    x_plan,
 )
 from echoflow_torch.ops.resize import _linear_resize_matrix_np
 
@@ -119,9 +121,9 @@ def test_kernel_tables_rebuild_the_resize_matrix(align_corners):
 
 @pytest.mark.parametrize("specs", SPECS)
 def test_kernel_arithmetic_matches_plain(specs):
-    """The kernel's per-pixel recipe, written out in torch: four corner
-    reads per source from the tables (rows first, then columns), bias and
-    ReLU, comb2 one output channel at a time folded into the heads."""
+    """The corner tables' per-pixel recipe, written out in torch: four
+    corner reads per source (rows first, then columns), bias and ReLU,
+    comb2 one output channel at a time folded into the heads."""
     projs, w = _inputs(3, specs)
     tp, tw = _torch(projs, w)
     h_out = w_out = 32
@@ -237,3 +239,111 @@ def test_decoder_weights_layout(folded_pair):
     assert w2.shape == (64, 64) and ws.shape == (64, 2) and wm.shape == (64, 4)
     assert torch.equal(w2, model.comb_2_layer.weight[:, :, 0, 0, 0].t())
     assert torch.equal(b1, model.comb_1_layer.bias)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the int32 bits: round the low 13 mantissa bits
+    to nearest, ties away from zero (bit patterns are sign and magnitude)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _three_pass(y, w2):
+    """comb2 as the kernel computes it: lo*W2hi + hi*W2lo + hi*W2hi, each
+    product of TF32 values exact in fp32, accumulated in fp32."""
+    y_hi, w_hi = _tf32(y), _tf32(w2)
+    y_lo, w_lo = _tf32(y - y_hi), _tf32(w2 - w_hi)
+    return y_lo @ w_hi + y_hi @ w_lo + y_hi @ w_hi
+
+
+# A column budget for `tile_plan` (the kernel's comes from its library,
+# `echoflow_decoder_heads_column_budget`); the main path's tiles need 56.
+COLUMN_BUDGET = 100
+
+
+def _kernel_recipe(projs, w, out_hw, align_corners=True):
+    """The CUDA kernel's arithmetic in torch: each output row cut into
+    `tile_plan`'s tiles; per tile, stage 1 blends every source column the
+    tile touches over the row's two source rows into a column buffer laid
+    out by `x_plan`; stage 2 blends each pixel's two columns per source
+    (rows first, then columns, the tables' float32 weights); +b1, ReLU;
+    comb2 as three TF32 passes; +b2, ReLU; the heads."""
+    h_out, w_out = out_hw
+    bsz, t, c = projs[0].shape[0], projs[0].shape[1], projs[0].shape[-1]
+    ys = [_axis_table(p.shape[2], h_out, align_corners) for p in projs]
+    xs = [_axis_table(p.shape[3], w_out, align_corners) for p in projs]
+    tile_w, cols = tile_plan([idx for idx, _ in xs], w_out, COLUMN_BUDGET)
+    plan = torch.from_numpy(x_plan(xs, w_out, tile_w, cols))
+    seg = torch.zeros(bsz, t, h_out, w_out, 2)
+    mot = torch.zeros(bsz, t, h_out, w_out, 4)
+    for y in range(h_out):
+        for tc, x0 in enumerate(range(0, w_out, tile_w)):
+            n_x = min(tile_w, w_out - x0)
+            buf = torch.zeros(bsz, t, sum(cols), c)
+            acc = torch.zeros(bsz, t, n_x, c)
+            for r, p in enumerate(projs):
+                (ylo, yhi), (wy_lo, wy_hi) = ys[r][0][y], ys[r][1][y]
+                first, n, at = (int(v) for v in plan[tc, r, 0, :3])
+                buf[:, :, at:at + n] = (float(wy_lo) * p[:, :, ylo, first:first + n]
+                                        + float(wy_hi) * p[:, :, yhi, first:first + n])
+                e = plan[tc, r, 1:1 + n_x]
+                wts = e[:, 2:].contiguous().view(torch.float32)
+                acc = (acc + wts[:, 0, None] * buf[:, :, e[:, 0]]
+                       + wts[:, 1, None] * buf[:, :, e[:, 1]])
+            z = torch.relu(_three_pass(torch.relu(acc + w["b1"]), w["w2"]) + w["b2"])
+            seg[:, :, y, x0:x0 + n_x] = z @ w["ws"] + w["bs"]
+            mot[:, :, y, x0:x0 + n_x] = torch.tanh(z @ w["wm"] + w["bm"])
+    return seg, mot
+
+
+@pytest.mark.parametrize("specs,out_hw,align_corners", [
+    (SPECS[0], (32, 32), True), (SPECS[1], (32, 32), True),
+    (SPECS[1], (20, 30), False),   # 600 pixels: not a multiple of 64
+])
+def test_kernel_tiled_recipe_matches_plain(specs, out_hw, align_corners):
+    projs, w = _inputs(5, specs)
+    tp, tw = _torch(projs, w)
+    seg, mot = _kernel_recipe(tp, tw, out_hw, align_corners)
+    rseg, rmot = reference_decoder_heads(tp, **tw, out_hw=out_hw, align_corners=align_corners)
+    np.testing.assert_allclose(seg.numpy(), rseg.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mot.numpy(), rmot.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_x_plan_points_at_the_tables_columns():
+    """Each pixel's two places in the column buffer are its table columns,
+    counted from the tile's first column, after the earlier sources'; a
+    tile's columns fit the budget (500 source columns onto 7 pixels halve
+    the tile to 2 pixels); entries past a tile's pixels are 0."""
+    for w_out, sizes in ((112, (56, 28, 14, 7)), (36, (20, 10, 5, 3)), (7, (500,))):
+        xs = [_axis_table(s, w_out, True) for s in sizes]
+        tile_w, cols = tile_plan([idx for idx, _ in xs], w_out, COLUMN_BUDGET)
+        plan = x_plan(xs, w_out, tile_w, cols)
+        assert 1 <= tile_w <= 64 and plan.shape == (-(-w_out // tile_w), len(sizes), 65, 4)
+        assert sum(cols) <= COLUMN_BUDGET and tile_w == {112: 56, 36: 36, 7: 2}[w_out]
+        for tc, x0 in enumerate(range(0, w_out, tile_w)):
+            n_x = min(tile_w, w_out - x0)
+            for r, (idx, wts) in enumerate(xs):
+                first, n, at = plan[tc, r, 0, :3]
+                assert at == sum(cols[:r]) and n <= cols[r]
+                np.testing.assert_array_equal(plan[tc, r, 1:1 + n_x, :2] - at + first,
+                                              idx[x0:x0 + n_x])
+                assert not plan[tc, r, 1 + n_x:].any()
+                np.testing.assert_array_equal(plan[tc, r, 1:1 + n_x, 2:].view(np.float32),
+                                              wts[x0:x0 + n_x])
+
+
+def test_three_tf32_passes_keep_fp32_accuracy():
+    """Why comb2 takes three TF32 passes: at the main path's magnitudes
+    (y = ReLU of upsampled 0.2-scale projections, W2 at 0.3 scale) the
+    three-pass product is within 2e-6 (relative to the largest entry) of
+    the float64 product, measured 3.1e-7; one TF32 pass, what the tensor
+    cores give for raw fp32 operands, is off by 5.2e-4, some 1,700 times
+    more."""
+    rng = np.random.RandomState(0)
+    y = torch.relu(torch.from_numpy((rng.randn(4096, 64) * 0.4).astype(np.float32)))
+    w2 = torch.from_numpy((rng.randn(64, 64) * 0.3).astype(np.float32))
+    exact = y.double() @ w2.double()
+    scale = float(exact.abs().max())
+    three = float((_three_pass(y, w2).double() - exact).abs().max()) / scale
+    one = float(((_tf32(y) @ _tf32(w2)).double() - exact).abs().max()) / scale
+    assert three <= 2e-6
+    assert one >= 10 * three
