@@ -26,9 +26,9 @@ Phases (any failure raises and the script exits nonzero):
      (coordinate gradient) against their plain PyTorch versions at the
      training path's shapes: one fused chain step's label warp
      (8, 4, 112, 112) and video warp (8, 3, 112, 112), and the unfused OTA
-     batch (124, 3, 112, 112); device time of kernel, plain version and
-     `F.grid_sample` (a yardstick the port never calls), and K3's
-     run-to-run difference;
+     batch (124, 3, 112, 112), each under a rough and a smooth motion
+     field; device time of kernel, plain version and `F.grid_sample` (a
+     yardstick the port never calls), and K3's run-to-run difference;
   6. training at full width: `create_train_state(device="cuda")`, fp32,
      TF32 off, 3 steps of `make_train_step(fused_ota=True)` at batch
      4 x 3 x 32 x 112 x 112 on synthetic samples, then one eval step, with
@@ -194,24 +194,35 @@ def _grid(px, py, h, w):
     return torch.stack([(2.0 * px + 1.0) / w - 1.0, (2.0 * py + 1.0) / h - 1.0], dim=-1)
 
 
-def warp_inputs(shape, g):
-    """Image, output gradient and the coordinates of a tanh-bounded motion
-    field as the model emits it; about 1% of the coordinates leave the
-    image, so the border clamp and the zeroed coordinate gradient run."""
+def warp_inputs(shape, g, motion="rough"):
+    """Image, output gradient and the coordinates of a motion field.
+    "rough": tanh-bounded per-pixel noise as the model emits it (about 8 px
+    standard deviation; about 1% of the coordinates leave the image, so
+    the border clamp and the zeroed coordinate gradient run). "smooth": a
+    7x7 field x 0.05 upsampled bilinearly, about 3 px, the scale of wall
+    motion between consecutive frames."""
     n, c, h, w = shape
     image = torch.rand(shape, device="cuda", generator=g)
     grad = torch.randn(shape, device="cuda", generator=g)
-    motion = torch.tanh(0.15 * torch.randn((n, 2, h, w), device="cuda", generator=g))
-    px, py = offset_coords(motion)
+    if motion == "rough":
+        field = torch.tanh(0.15 * torch.randn((n, 2, h, w), device="cuda", generator=g))
+    else:
+        field = F.interpolate(0.05 * torch.randn((n, 2, 7, 7), device="cuda", generator=g),
+                              size=(h, w), mode="bilinear", align_corners=False)
+    px, py = offset_coords(field)
     return image, grad, px.contiguous(), py.contiguous()
 
 
 def phase_warp():
-    """K2, K3, K4 against their plain versions at the training shapes."""
+    """K2, K3, K4 against their plain versions at the training shapes, on
+    the rough field (keys "label", "video", "ota") and the smooth one
+    ("label_smooth", ...)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {"warp_forward": {}, "warp_image_grad": {}, "warp_coord_grad": {}}
-    for label, shape in WARP_SHAPES:
-        image, grad, px, py = warp_inputs(shape, g)
+    cases = [(label, shape, "rough") for label, shape in WARP_SHAPES]
+    cases += [(f"{label}_smooth", shape, "smooth") for label, shape in WARP_SHAPES]
+    for label, shape, motion in cases:
+        image, grad, px, py = warp_inputs(shape, g, motion)
         n, c, h, w = shape
         img_b, pix_b = image.numel() * 4, px.numel() * 4
         grid = _grid(px, py, h, w)
@@ -275,9 +286,11 @@ def phase_warp():
             bound_ms=(2 * img_b + 4 * pix_b) / PEAK_HBM_BYTES * 1e3, bound_by="bytes")
         for name in out:
             r = out[name][label]
-            log(f"{name} {label} {tuple(shape)}: max_abs_err {r['max_abs_err']:.3e}, kernel "
-                f"{r['ms'] * 1e3:.1f} us (call {r['call_ms'] * 1e3:.1f} us), plain "
-                f"{r['plain_ms'] * 1e3:.1f} us, grid_sample {r['library_ms'] * 1e3:.1f} us, "
+            r["motion"] = motion
+            log(f"{name} {label} {tuple(shape)} {motion}: max_abs_err "
+                f"{r['max_abs_err']:.3e}, kernel {r['ms'] * 1e3:.2f} us (call "
+                f"{r['call_ms'] * 1e3:.2f} us), plain {r['plain_ms'] * 1e3:.1f} us, "
+                f"grid_sample {r['library_ms'] * 1e3:.1f} us, "
                 f"bound {r['bound_ms'] * 1e3:.2f} us"
                 + (f", run-to-run {r['run_to_run_abs_diff']:.3e}"
                    if "run_to_run_abs_diff" in r else ""))

@@ -30,25 +30,63 @@
 // and output N*C*H*W floats, coordinates 2*N*H*W) and does ~6-12 FLOP per
 // element, far below the card's ~20 FLOP/byte balance: they are bound by
 // bytes, and at the training path's shapes (8 x 4 x 112 x 112, about 4 MB
-// per call, ~1.2 us at 3.35 TB/s) by the launch itself.
+// per call, ~1.2 us at 3.35 TB/s) by the launch itself (an empty grid of
+// the same size takes ~1 us on the card).
 //
-// What the design does about that: one thread per output pixel computes
-// its corners and weights once and loops over the channels, so the
-// coordinates are read once and neighbouring threads read neighbouring
-// pixels (coalesced coordinate and output traffic; the four corner loads
-// of a warp fall on at most a few rows of the image, which L1/L2 serve).
-// The TPU kernel's one-hot matrices and MXU row interpolation were a
-// workaround for slow TPU gathers and are not carried over: a Hopper thread
-// gathers its four corners directly, for any H and W. K3 scatters with
-// fp32 atomicAdd, so its sums are taken in an order that changes from run
-// to run (the Pallas kernel accumulated in order in VMEM); the wrapper
-// zeroes d_img. Arithmetic uses __fadd_rn/__fmul_rn so no multiply-add is
-// contracted: every value the plain PyTorch versions compute elementwise
-// is reproduced bit for bit, and only K3's summation order differs.
+// K2: one thread per output pixel computes its corners and weights once and
+// loops over the channels, so the coordinates are read once and
+// neighbouring threads read neighbouring pixels. The TPU kernel's one-hot
+// matrices and MXU row interpolation were a workaround for slow TPU gathers
+// and are not carried over: a Hopper thread gathers its four corners
+// directly, for any H and W.
+//
+// K3 is a scatter: every pixel adds a term to each of its four corners in
+// every channel, and each element of d_img takes terms from about four
+// pixels. On an H100 what bounds it is the count of atomics each thread
+// issues, not their bytes: 4*C scalar fp32 atomics per pixel (one per
+// corner and channel, four channel planes apart) cost 6-10 us at the
+// label shape under near-identity to smooth motion and 22 us under rough
+// motion, where the same terms as one 16-byte atomic per corner (4
+// channels) cost 3.4-3.8 and 5.9 us (PERF.md). Summing in shared memory
+// instead does not pay here: fp32 atomicAdd on shared memory compiles to
+// a compare-and-swap loop (ATOMS.CAST.SPIN), and every window design
+// measured slower than the parent on smooth motion. So K3 makes two launches:
+//   1. scatter into a zeroed channels-last scratch accumulator (N*H*W x C
+//      rounded up to 4): one float4 atomicAdd (sm_90) carries a corner's 4
+//      channels; lanes hold consecutive pixels, and where a pixel's right
+//      corner is the next pixel's left corner a shuffle joins the two
+//      terms, so under smooth motion a row costs one atomic per pixel, not
+//      two;
+//   2. transpose the accumulator into d_img (N, C, H, W) with plain
+//      stores: every element is written once, so d_img needs no memset
+//      (the scratch does; the caller zeroes it).
+// Both are bound by latency and the launch (an empty grid of the same size
+// takes ~1 us), not by the 1.2 us byte bound. The summation order is still
+// run-dependent (atomics arrive in any order, and a joined pair is summed
+// before its atomic), so K3 holds its per-element bound
+// (`image_grad_tolerance`) and is not bitwise reproducible.
+//
+// K4 is a gather: per pixel 4*C corner loads and C loads of g, then a
+// channel sum. With C a runtime loop each channel's loads waited on the
+// previous channel's, C round trips to memory per thread. The kernel is
+// templated on C (1-4, and a generic version in chunks of 4 channels), so a
+// thread issues all loads of a chunk before its arithmetic, and, where the
+// next lane's pixel has the next corner in at least half the warp (smooth
+// motion), takes its own x0 + 1 corners from that lane by a shuffle
+// instead of loading them. It
+// is bound by two dependent round trips (coordinates, then corners) and
+// the launch; under rough motion by the scattered gathers.
+//
+// Arithmetic uses __fadd_rn/__fmul_rn so no multiply-add is contracted:
+// every value the plain PyTorch versions compute elementwise is reproduced
+// bit for bit (K2 and K4 bitwise; K3's terms bitwise, their sums in another
+// order).
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // every int is int. Each function launches on the given stream, allocates
-// nothing, does not synchronise and returns cudaGetLastError().
+// nothing (K3's scratch comes from the caller, sized by
+// echoflow_warp_image_grad_scratch), does not synchronise and returns a
+// cudaError_t as int.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +94,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Corner {
   int x0, y0;      // top-left corner, inside the image
@@ -104,69 +143,177 @@ warp_forward_kernel(const float* __restrict__ img, const float* __restrict__ px,
   }
 }
 
-// K3: d_img (N, C, H, W), zeroed by the caller, += the four weighted g.
+// K3 helper: whether a lane's row term joins its neighbours'. Lanes hold
+// consecutive pixels, and under smooth motion a pixel's right corner
+// (key_r) is the next pixel's left corner (key): the next lane then adds
+// this lane's right term to its left term ("take") and this lane skips its
+// own atomic for it ("give"). Keys are flat pixel indices, -1 for none.
+struct RowJoin {
+  bool take, give;
+};
+
+__device__ __forceinline__ RowJoin row_join(int key, int key_r) {
+  const int lane = threadIdx.x & 31;
+  const int prev_r = __shfl_up_sync(kFull, key_r, 1);
+  const int next = __shfl_down_sync(kFull, key, 1);
+  return {lane > 0 && key >= 0 && prev_r == key, lane < 31 && key_r >= 0 && next == key_r};
+}
+
+// K3, pass 1: scatter. acc is a zeroed channels-last accumulator, N*H*W
+// pixels x C4 floats (C rounded up to 4). A thread takes a pixel and, per
+// chunk of 4 channels (C compiled when it is 1-4; 0: any, in chunks), adds
+// its corners' terms to acc with 16-byte atomics: one atomic carries a
+// corner's 4 channels. A row's right term is joined to the next lane's
+// left term where they meet.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 warp_image_grad_kernel(const float* __restrict__ g, const float* __restrict__ px,
-                       const float* __restrict__ py, float* __restrict__ dimg,
-                       int n, int c, int h, int w) {
-  const int64_t hw = (int64_t)h * w;
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (int64_t)n * hw) return;
-  const int64_t b = i / hw, p = i - b * hw;
-  const Corner k = corner(px[i], py[i], h, w);
+                       const float* __restrict__ py, float* __restrict__ acc,
+                       int n, int c_any, int h, int w) {
+  const int c = C > 0 ? C : c_any;
+  const int c4 = (c + 3) & ~3;
+  const int hw = h * w, total = n * hw;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool on = i < total;
+  const int q = on ? i : 0;
+  const int b = q / hw, p = q - b * hw;
+  const Corner k = corner(__ldg(px + q), __ldg(py + q), h, w);
+  const int kt = on ? b * hw + k.y0 * w + k.x0 : -1;
+  const int kb = on && k.hy ? kt + w : -1;
+  const RowJoin jt = row_join(kt, kt >= 0 && k.hx ? kt + 1 : -1);
+  const RowJoin jb = row_join(kb, kb >= 0 && k.hx ? kb + 1 : -1);
   const float wx0 = __fsub_rn(1.f, k.fx), wy0 = __fsub_rn(1.f, k.fy);
-  const int64_t o00 = (int64_t)k.y0 * w + k.x0;
-  const float* gs = g + b * c * hw + p;
-  float* d = dimg + b * c * hw;
-  for (int ch = 0; ch < c; ++ch) {
-    const float gv = gs[ch * hw];
-    float* dc = d + ch * hw + o00;
-    const float gx0 = __fmul_rn(wx0, gv), gx1 = __fmul_rn(k.fx, gv);
-    atomicAdd(dc, __fmul_rn(wy0, gx0));
-    if (k.hx) atomicAdd(dc + 1, __fmul_rn(wy0, gx1));
-    if (k.hy) atomicAdd(dc + w, __fmul_rn(k.fy, gx0));
-    if (k.hx && k.hy) atomicAdd(dc + w + 1, __fmul_rn(k.fy, gx1));
+  const float* gs = g + (int64_t)b * c * hw + p;
+  for (int c0 = 0; c0 < c; c0 += 4) {
+    float tl[4], tr[4], bl[4], br[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float gv = on && c0 + j < c ? __ldg(gs + (int64_t)(c0 + j) * hw) : 0.f;
+      const float gx0 = __fmul_rn(wx0, gv), gx1 = __fmul_rn(k.fx, gv);
+      tl[j] = __fmul_rn(wy0, gx0);
+      tr[j] = __fmul_rn(wy0, gx1);
+      bl[j] = __fmul_rn(k.fy, gx0);
+      br[j] = __fmul_rn(k.fy, gx1);
+      const float tr_prev = __shfl_up_sync(kFull, tr[j], 1);
+      const float br_prev = __shfl_up_sync(kFull, br[j], 1);
+      if (jt.take) tl[j] = __fadd_rn(tl[j], tr_prev);
+      if (jb.take) bl[j] = __fadd_rn(bl[j], br_prev);
+    }
+    if (!on) continue;
+    float4* at = reinterpret_cast<float4*>(acc + (int64_t)kt * c4 + c0);
+    atomicAdd(at, make_float4(tl[0], tl[1], tl[2], tl[3]));
+    if (k.hx && !jt.give) atomicAdd(at + c4 / 4, make_float4(tr[0], tr[1], tr[2], tr[3]));
+    if (k.hy) {
+      float4* ab = reinterpret_cast<float4*>(acc + (int64_t)kb * c4 + c0);
+      atomicAdd(ab, make_float4(bl[0], bl[1], bl[2], bl[3]));
+      if (k.hx && !jb.give) atomicAdd(ab + c4 / 4, make_float4(br[0], br[1], br[2], br[3]));
+    }
+  }
+}
+
+// K3, pass 2: d_img (N, C, H, W) from acc, a thread a pixel, every element
+// written once.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+warp_image_grad_kernel_transpose(const float* __restrict__ acc, float* __restrict__ dimg,
+                                 int n, int c_any, int h, int w) {
+  const int c = C > 0 ? C : c_any;
+  const int c4 = (c + 3) & ~3;
+  const int hw = h * w;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n * hw) return;
+  const int b = i / hw, p = i - b * hw;
+  float* d = dimg + (int64_t)b * c * hw + p;
+  for (int c0 = 0; c0 < c; c0 += 4) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(acc + (int64_t)i * c4 + c0));
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c0 + q < c) d[(int64_t)(c0 + q) * hw] = vs[q];
   }
 }
 
 // K4: d_px, d_py (N, H, W): the channel sum of g times the derivative of
 // the bilinear weights, zeroed where the raw coordinate leaves [0, size-1].
+// A thread takes a pixel; C is compiled (C = 0: any count, in chunks of 4),
+// and every load of a chunk is issued before its arithmetic, which keeps
+// the plain version's order: per channel its ddx, ddy, then ax += g ddx in
+// channel order. Under smooth motion a pixel's right corners (x0 + 1) are
+// the next lane's left corners: they come from that lane by a shuffle, the
+// same values as a load would give, and only the other lanes load them.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 warp_coord_grad_kernel(const float* __restrict__ img, const float* __restrict__ g,
                        const float* __restrict__ px, const float* __restrict__ py,
                        float* __restrict__ dpx, float* __restrict__ dpy,
-                       int n, int c, int h, int w) {
-  const int64_t hw = (int64_t)h * w;
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (int64_t)n * hw) return;
-  const int64_t b = i / hw, p = i - b * hw;
-  const float rx = px[i], ry = py[i];
+                       int n, int c_any, int h, int w) {
+  constexpr int kChunk = C > 0 ? C : 4;
+  const int c = C > 0 ? C : c_any;
+  const int hw = h * w, total = n * hw;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool on = i < total;
+  const int q0 = on ? i : 0;
+  const int b = q0 / hw, p = q0 - b * hw;
+  const float rx = __ldg(px + q0), ry = __ldg(py + q0);
   const Corner k = corner(rx, ry, h, w);
   const float wx0 = __fsub_rn(1.f, k.fx), wy0 = __fsub_rn(1.f, k.fy);
-  const int64_t o00 = (int64_t)k.y0 * w + k.x0;
-  const float* src = img + b * c * hw + o00;
-  const float* gs = g + b * c * hw + p;
+  const int key = on ? b * hw + k.y0 * w + k.x0 : -1;
+  const int key_next = __shfl_down_sync(kFull, key, 1);
+  const bool next_holds = (threadIdx.x & 31) < 31 && key >= 0 && k.hx && key_next == key + 1;
+  // Shuffles pay only where most of the warp can use them (smooth motion);
+  // under scattered motion every lane loads its own corners.
+  const unsigned holders = __ballot_sync(kFull, next_holds);
+  const bool share = next_holds && __popc(holders) >= 16;
+  const float* src = img + (int64_t)b * c * hw + k.y0 * w + k.x0;
+  const float* gs = g + (int64_t)b * c * hw + p;
   float ax = 0.f, ay = 0.f;
-  for (int ch = 0; ch < c; ++ch) {
-    const float* s = src + ch * hw;
-    const float v00 = __ldg(s);
-    const float v01 = k.hx ? __ldg(s + 1) : 0.f;
-    const float v10 = k.hy ? __ldg(s + w) : 0.f;
-    const float v11 = (k.hx && k.hy) ? __ldg(s + w + 1) : 0.f;
-    const float ddx = __fadd_rn(__fmul_rn(wy0, __fsub_rn(v01, v00)),
-                                __fmul_rn(k.fy, __fsub_rn(v11, v10)));
-    const float ddy = __fadd_rn(__fmul_rn(wx0, __fsub_rn(v10, v00)),
-                                __fmul_rn(k.fx, __fsub_rn(v11, v01)));
-    const float gv = gs[ch * hw];
-    ax = __fadd_rn(ax, __fmul_rn(gv, ddx));
-    ay = __fadd_rn(ay, __fmul_rn(gv, ddy));
+  for (int c0 = 0; c0 < c; c0 += kChunk) {
+    float gv[kChunk], v00[kChunk], v01[kChunk], v10[kChunk], v11[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const bool ch = on && (C > 0 || c0 + q < c);
+      const float* s = src + (int64_t)(c0 + q) * hw;
+      gv[q] = ch ? __ldg(gs + (int64_t)(c0 + q) * hw) : 0.f;
+      v00[q] = ch ? __ldg(s) : 0.f;
+      v10[q] = ch && k.hy ? __ldg(s + w) : 0.f;
+      v01[q] = ch && k.hx && !share ? __ldg(s + 1) : 0.f;
+      v11[q] = ch && k.hx && k.hy && !share ? __ldg(s + w + 1) : 0.f;
+    }
+    if (__any_sync(kFull, share)) {
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q) {
+        const float r0 = __shfl_down_sync(kFull, v00[q], 1);
+        const float r1 = __shfl_down_sync(kFull, v10[q], 1);
+        if (share) {
+          v01[q] = r0;
+          v11[q] = k.hy ? r1 : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (C > 0 || c0 + q < c) {
+        const float ddx = __fadd_rn(__fmul_rn(wy0, __fsub_rn(v01[q], v00[q])),
+                                    __fmul_rn(k.fy, __fsub_rn(v11[q], v10[q])));
+        const float ddy = __fadd_rn(__fmul_rn(wx0, __fsub_rn(v10[q], v00[q])),
+                                    __fmul_rn(k.fx, __fsub_rn(v11[q], v01[q])));
+        ax = __fadd_rn(ax, __fmul_rn(gv[q], ddx));
+        ay = __fadd_rn(ay, __fmul_rn(gv[q], ddy));
+      }
+    }
   }
+  if (!on) return;
   dpx[i] = (rx >= 0.f && rx <= (float)(w - 1)) ? ax : 0.f;
   dpy[i] = (ry >= 0.f && ry <= (float)(h - 1)) ? ay : 0.f;
 }
 
 inline unsigned blocks_for(int n, int h, int w) {
   return (unsigned)(((int64_t)n * h * w + kThreads - 1) / kThreads);
+}
+
+// K3's scratch, in floats: the channels-last accumulator.
+inline int64_t image_grad_scratch(int n, int c, int h, int w) {
+  return (int64_t)n * h * w * ((c + 3) & ~3);
 }
 
 }  // namespace
@@ -180,14 +327,40 @@ extern "C" int echoflow_warp_forward(const void* img, const void* px, const void
   return (int)cudaGetLastError();
 }
 
+// Floats of scratch the caller passes to echoflow_warp_image_grad.
+extern "C" long long echoflow_warp_image_grad_scratch(int n, int c, int h, int w) {
+  return image_grad_scratch(n, c, h, w);
+}
+
+// K3: scatter into the scratch (the accumulator, zeroed by the caller),
+// then write d_img from it. d_img needs no zeroing: pass 2 writes every
+// element. The scratch must be 16-byte aligned (the accumulator's vector
+// atomics), and its size below 2^31 floats (int pixel indices).
 extern "C" int echoflow_warp_image_grad(const void* g, const void* px, const void* py,
-                                        void* dimg, int n, int c, int h, int w,
+                                        void* dimg, void* scratch, int n, int c, int h, int w,
                                         void* stream) {
   if ((int64_t)n * h * w == 0 || c == 0) return 0;
-  warp_image_grad_kernel<<<blocks_for(n, h, w), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(px),
-      static_cast<const float*>(py), static_cast<float*>(dimg), n, c, h, w);
+  if ((reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
+      image_grad_scratch(n, c, h, w) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto G = static_cast<const float*>(g);
+  const auto X = static_cast<const float*>(px);
+  const auto Y = static_cast<const float*>(py);
+  const auto D = static_cast<float*>(dimg);
+  const auto A = static_cast<float*>(scratch);
+  const unsigned blocks = blocks_for(n, h, w);
+#define ECHOFLOW_K3(CC)                                                              \
+  warp_image_grad_kernel<CC><<<blocks, kThreads, 0, s>>>(G, X, Y, A, n, c, h, w);   \
+  warp_image_grad_kernel_transpose<CC><<<blocks, kThreads, 0, s>>>(A, D, n, c, h, w)
+  switch (c) {
+    case 1: ECHOFLOW_K3(1); break;
+    case 2: ECHOFLOW_K3(2); break;
+    case 3: ECHOFLOW_K3(3); break;
+    case 4: ECHOFLOW_K3(4); break;
+    default: ECHOFLOW_K3(0); break;
+  }
+#undef ECHOFLOW_K3
   return (int)cudaGetLastError();
 }
 
@@ -195,10 +368,24 @@ extern "C" int echoflow_warp_coord_grad(const void* img, const void* g, const vo
                                         const void* py, void* dpx, void* dpy,
                                         int n, int c, int h, int w, void* stream) {
   if ((int64_t)n * h * w == 0) return 0;
-  warp_coord_grad_kernel<<<blocks_for(n, h, w), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(g),
-      static_cast<const float*>(px), static_cast<const float*>(py),
-      static_cast<float*>(dpx), static_cast<float*>(dpy), n, c, h, w);
+  if ((int64_t)n * h * w >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = blocks_for(n, h, w);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto I = static_cast<const float*>(img);
+  const auto G = static_cast<const float*>(g);
+  const auto X = static_cast<const float*>(px);
+  const auto Y = static_cast<const float*>(py);
+  const auto DX = static_cast<float*>(dpx);
+  const auto DY = static_cast<float*>(dpy);
+#define ECHOFLOW_K4(CC) \
+  warp_coord_grad_kernel<CC><<<blocks, kThreads, 0, s>>>(I, G, X, Y, DX, DY, n, c, h, w)
+  switch (c) {
+    case 1: ECHOFLOW_K4(1); break;
+    case 2: ECHOFLOW_K4(2); break;
+    case 3: ECHOFLOW_K4(3); break;
+    case 4: ECHOFLOW_K4(4); break;
+    default: ECHOFLOW_K4(0); break;
+  }
+#undef ECHOFLOW_K4
   return (int)cudaGetLastError();
 }

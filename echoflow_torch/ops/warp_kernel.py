@@ -20,6 +20,11 @@ tensors; for CUDA tensors it checks device, dtype, shape and contiguity and
 launches its kernel of `csrc/warp.cu`, or raises. `.launches` on each
 wrapper counts its kernel launches.
 
+K3 adds every pixel's terms into a zeroed channels-last scratch with
+16-byte atomics (a warp joins the terms its neighbouring lanes add to one
+element), then a second kernel writes d_img from it (`csrc/warp.cu`;
+`tests/test_torch_warp.py` states the same recipe in torch).
+
 The coordinate gradient follows the Pallas kernel: it is zeroed where the
 raw coordinate lies outside [0, size-1], and at exactly size-1 it is the
 derivative of the one-hot weights (-v, the x0+1 column lies outside the
@@ -147,7 +152,9 @@ def _lib():
     lib = _build.load("warp")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.echoflow_warp_forward.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.echoflow_warp_image_grad.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.echoflow_warp_image_grad.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.echoflow_warp_image_grad_scratch.argtypes = [i32] * 4
+    lib.echoflow_warp_image_grad_scratch.restype = ctypes.c_longlong
     lib.echoflow_warp_coord_grad.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     for fn in (lib.echoflow_warp_forward, lib.echoflow_warp_image_grad,
                lib.echoflow_warp_coord_grad):
@@ -206,8 +213,11 @@ def warp_image_grad(g, px, py):
     if _is_cpu(g):
         return reference_warp_image_grad(g, px, py)
     n, c, h, w = _check_cuda("warp_image_grad", g, (px, py))
-    d_img = torch.zeros_like(g)
-    _launch(_lib().echoflow_warp_image_grad, "warp_image_grad", g, px, py, d_img, n, c, h, w)
+    lib = _lib()
+    d_img = torch.empty_like(g)   # the kernel writes every element
+    scratch = torch.zeros(lib.echoflow_warp_image_grad_scratch(n, c, h, w), device=g.device)
+    _launch(lib.echoflow_warp_image_grad, "warp_image_grad", g, px, py, d_img, scratch,
+            n, c, h, w)
     warp_image_grad.launches += 1
     return d_img
 

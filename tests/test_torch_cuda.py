@@ -128,35 +128,48 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
     assert decoder_heads.launches > before
 
 
-WARP_SHAPES = [(3, 5, 15, 17), (2, 1, 1, 9), (1, 2, 31, 1), (8, 4, 112, 112),
+# Odd and training shapes. C = 1-4 reach the compiled channel counts of K3
+# and K4, and 5, 7, 60 their generic chunks (C not a multiple of 4 pads
+# K3's channels-last accumulator); W = 17, 9, 1, 30, 6 are not multiples of
+# 4, and 15 x 17, 1 x 9, 33 x 30 pixels not a multiple of a warp.
+WARP_SHAPES = [(3, 5, 15, 17), (2, 1, 1, 9), (1, 2, 31, 1), (2, 7, 33, 30), (3, 1, 12, 6),
+               (2, 2, 20, 28), (2, 7, 112, 112), (1, 60, 6, 1000), (8, 4, 112, 112),
                (8, 3, 112, 112), (124, 3, 112, 112)]
 
 
-def _warp_inputs(shape, seed=0):
-    """Image, output gradient and coordinates on the card; offsets reach
-    far past the border, and some coordinates sit exactly on the last
-    row and column."""
+def _warp_inputs(shape, seed=0, motion="far"):
+    """Image, output gradient and coordinates on the card. "far": offsets
+    reach far past the border; "near": about 0.3 px from the identity, so
+    every element of d_img takes its terms from neighbouring pixels and
+    neighbouring lanes often hold the same corners. Some coordinates sit
+    exactly on the last row and column."""
     n, c, h, w = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     image = torch.rand(shape, device="cuda", generator=g)
     grad = torch.randn(shape, device="cuda", generator=g)
-    px = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * w - 0.5
-    py = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * h - 0.5
+    if motion == "far":
+        px = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * w - 0.5
+        py = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * h - 0.5
+    else:
+        noise = 0.3 * torch.randn((2, n, h, w), device="cuda", generator=g)
+        px = torch.arange(w, device="cuda", dtype=torch.float32) + noise[0]
+        py = torch.arange(h, device="cuda", dtype=torch.float32)[:, None] + noise[1]
     px[:, ::3, ::4] = w - 1.0
     py[:, ::4, ::3] = h - 1.0
-    return image, grad, px, py
+    return image, grad, px.contiguous(), py.contiguous()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("motion", ["far", "near"])
 @pytest.mark.parametrize("shape", WARP_SHAPES)
-def test_warp_kernels_match_plain(cuda, shape):
+def test_warp_kernels_match_plain(cuda, shape, motion):
     """K2 and K4 repeat the plain versions' elementwise arithmetic in the
     same order, so they are bitwise equal. K3 adds with fp32 atomics, in
     an order that changes from run to run: it stays within the per-element
     bound of `image_grad_tolerance`, of the plain version and of itself."""
     from echoflow_torch.ops import warp_kernel as wk
 
-    image, grad, px, py = _warp_inputs(shape)
+    image, grad, px, py = _warp_inputs(shape, motion=motion)
     before = (wk.warp_forward.launches, wk.warp_image_grad.launches,
               wk.warp_coord_grad.launches)
     out = wk.warp_forward(image, px, py)

@@ -198,3 +198,93 @@ def test_unknown_mode_and_device_raise():
         tkernel.warp_forward(torch.zeros(1, 1, 2, 2, device="meta"),
                              torch.zeros(1, 2, 2, device="meta"),
                              torch.zeros(1, 2, 2, device="meta"))
+
+
+
+def _k3_recipe(g, px, py):
+    """K3 (`csrc/warp.cu`) in torch. Pass 1: lanes of 32 hold consecutive
+    pixels (flat N*H*W order); each pixel's terms wy (wx g), one vector a
+    corner over all channels, are added to a channels-last accumulator,
+    except that where a pixel's right corner (x0 + 1) is the next lane's
+    left corner, that lane adds the two terms as one (top and bottom row
+    alike). Pass 2: the accumulator, transposed, is d_img. Returns d_img,
+    the number of terms that reached each element and the atomics per
+    pixel."""
+    n, c, h, w = g.shape
+    x0, y0, fx, fy = (t.reshape(-1) for t in tkernel._corners(px, py, h, w))
+    fx, fy = fx.float(), fy.float()
+    pixels = n * h * w
+    idx = torch.arange(pixels)
+    lane = idx % 32
+    hx, hy = x0 + 1 < w, y0 + 1 < h
+    gp = g.permute(0, 2, 3, 1).reshape(pixels, c)          # g of each pixel, channels last
+    gx0, gx1 = (1.0 - fx)[:, None] * gp, fx[:, None] * gp
+    kt = idx // (h * w) * (h * w) + y0 * w + x0
+    kb = torch.where(hy, kt + w, torch.full_like(kt, -1))
+    acc = torch.zeros(pixels, c)
+    hits = torch.zeros(pixels, c)
+    atomics = 0
+    for key, wy in ((kt, 1.0 - fy), (kb, fy)):
+        left, right = wy[:, None] * gx0, wy[:, None] * gx1
+        key_r = torch.where((key >= 0) & hx, key + 1, torch.full_like(key, -1))
+        prev_r = torch.cat([torch.full((1,), -1), key_r[:-1]])
+        nxt = torch.cat([key[1:], torch.full((1,), -1)])
+        take = (lane > 0) & (key >= 0) & (prev_r == key)
+        give = (lane < 31) & (key_r >= 0) & (nxt == key_r)
+        prev_right = torch.cat([torch.zeros(1, c), right[:-1]])
+        left = torch.where(take[:, None], left + prev_right, left)
+        on_l, on_r = key >= 0, (key_r >= 0) & ~give
+        for on, k, v, terms in ((on_l, key, left, 1.0 + take.float()),
+                                (on_r, key_r, right, torch.ones(pixels))):
+            acc.index_add_(0, k[on], v[on])
+            hits.index_add_(0, k[on], terms[on][:, None].expand(-1, c).contiguous())
+            atomics += int(on.sum())
+    d = acc.reshape(n, h, w, c).permute(0, 3, 1, 2)
+    return d, hits.reshape(n, h, w, c).permute(0, 3, 1, 2), atomics / pixels
+
+
+def _k3_case(case):
+    rng = np.random.RandomState(7)
+    shape = {"near_identity": (2, 3, 24, 20), "smooth_shift": (2, 4, 16, 40),
+             "rough": (1, 4, 112, 112), "far_past_border": (2, 2, 70, 9),
+             "pixels_not_a_multiple_of_32": (2, 5, 30, 13), "one_row": (3, 3, 1, 17)}[case]
+    n, c, h, w = shape
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    if case in ("near_identity", "smooth_shift"):
+        noise = 0.3 * rng.randn(2, n, h, w) if case == "near_identity" \
+            else np.full((2, n, h, w), 0.3)
+        px = torch.arange(w, dtype=torch.float32) + torch.from_numpy(noise[0].astype(np.float32))
+        py = torch.arange(h, dtype=torch.float32)[:, None] + torch.from_numpy(
+            noise[1].astype(np.float32))
+    else:
+        # chip_smoke.py phase 5's rough field, tanh(0.15 randn) (~8 px at
+        # 112 wide); 3 randn for motion far past the border.
+        offsets = np.tanh(0.15 * rng.randn(n, 2, h, w)) if case != "far_past_border" \
+            else 3.0 * rng.randn(n, 2, h, w)
+        px, py = _coords(offsets.astype(np.float32))
+    return g, px, py
+
+
+@pytest.mark.parametrize("case", ["near_identity", "smooth_shift", "rough", "far_past_border",
+                                  "pixels_not_a_multiple_of_32", "one_row"])
+def test_k3_tiled_recipe_matches_plain(case):
+    """K3's recipe equals the plain d_img within `image_grad_tolerance`,
+    and every term reaches its element exactly once, alone or joined to its
+    neighbour's: the recipe's hit counts are `_corner_terms`' own. A
+    uniform sub-pixel shift joins every pair but the warps' last lanes':
+    about 2 atomics a pixel instead of 4; rough motion joins almost none."""
+    g, px, py = _k3_case(case)
+    n, c, h, w = g.shape
+    d, hits, atomics = _k3_recipe(g, px, py)
+    want = tkernel.reference_warp_image_grad(g, px, py)
+    tol = tkernel.image_grad_tolerance(g, px, py)
+    assert ((d - want).abs() <= tol).all(), float((d - want).abs().max())
+    want_hits = torch.zeros(n, c, h * w)
+    for idx, valid, _, _ in tkernel._corner_terms(px, py, h, w):
+        for b in range(n):
+            want_hits[b].index_add_(1, idx[b].reshape(-1),
+                                    valid[b].reshape(1, -1).float().expand(c, -1).contiguous())
+    assert torch.equal(hits, want_hits.reshape(n, c, h, w))
+    limits = {"smooth_shift": (1.9, 2.1), "rough": (3.6, 4.0), "one_row": (1.0, 2.0)}
+    lo, hi = limits.get(case, (1.0, 4.0))
+    assert lo <= atomics <= hi, atomics
