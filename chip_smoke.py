@@ -27,15 +27,20 @@ Phases (any failure raises and the script exits nonzero):
      training path's shapes: one fused chain step's label warp
      (8, 4, 112, 112) and video warp (8, 3, 112, 112), and the unfused OTA
      batch (124, 3, 112, 112), each under a rough and a smooth motion
-     field; device time of kernel, plain version and `F.grid_sample` (a
-     yardstick the port never calls), and K3's run-to-run difference;
+     field; then K2's pair launch of the chain step (label and video at
+     the same coordinates, cases "chain" and "chain_smooth") beside the
+     two single launches on the same inputs; device time of kernel, plain
+     version and `F.grid_sample` (a yardstick the port never calls), and
+     K3's run-to-run difference;
   6. training at full width: `create_train_state(device="cuda")`, fp32,
      TF32 off, 3 steps of `make_train_step(fused_ota=True)` at batch
      4 x 3 x 32 x 112 x 112 on synthetic samples, then one eval step, with
      the warp launch counts zeroed just before and read just after each and
-     held against the counts the code implies; then one small step on the
-     card and on the CPU from the same state (loss, all gradients, and each
-     leaf's gradient by its relative L2 error).
+     held against the counts the code implies; the count of calls in one
+     more fused step that wait for the device (torch's sync debug mode,
+     information only); then one small step on the card and on the CPU from
+     the same state (loss, all gradients, and each leaf's gradient by its
+     relative L2 error).
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -43,10 +48,12 @@ the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -77,10 +84,10 @@ K1_TOL = 1e-4
 K1_WEIGHTS = dict(b1=(64,), w2=(64, 64), b2=(64,), ws=(64, 2), bs=(2,), wm=(64, 4), bm=(4,))
 MASK_TOL = 1e-4        # argmax near-ties between two fp32 decoders
 # K2 and K4 do the plain versions' elementwise arithmetic in the same order
-# with no contracted multiply-adds, so they are expected bitwise equal; the
-# bound allows a last-bit difference. K3's bound is per element
+# with no contracted multiply-adds. K2 is held bitwise; K4's bound allows a
+# last-bit difference (it is bitwise too). K3's bound is per element
 # (`image_grad_tolerance`): fp32 atomics add in a run-dependent order.
-K24_TOL = 1e-6         # relative to 1 + |plain|
+K4_TOL = 1e-6          # relative to 1 + |plain|
 # Card vs CPU, one fused train step at (2, 3, 8, 32, 32): fp32 rounding on
 # both sides, cuDNN's and the CPU's conv algorithms, K3's atomics. Measured
 # on an H100: loss 6.7e-7, all gradients 1.6e-3, worst leaf 2.3e-3. A
@@ -230,8 +237,8 @@ def phase_warp():
         # K2
         got, want = wk.warp_forward(image, px, py), wk.reference_warp_forward(image, px, py)
         err = float((got - want).abs().max())
-        if not bool(((got - want).abs() <= K24_TOL * (1 + want.abs())).all()):
-            raise AssertionError(f"K2 {shape}: max abs err {err} vs plain")
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 {shape}: not bitwise the plain version, max abs err {err}")
         lib_err = float((F.grid_sample(image, grid, mode="bilinear", padding_mode="border",
                                        align_corners=False) - want).abs().max())
         call, ms = device_ms(lambda: wk.warp_forward(image, px, py),
@@ -270,7 +277,7 @@ def phase_warp():
         got, want = wk.warp_coord_grad(image, grad, px, py), \
             wk.reference_warp_coord_grad(image, grad, px, py)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        if not all(bool(((a - b).abs() <= K24_TOL * (1 + b.abs())).all())
+        if not all(bool(((a - b).abs() <= K4_TOL * (1 + b.abs())).all())
                    for a, b in zip(got, want)):
             raise AssertionError(f"K4 {shape}: max abs err {err} vs plain")
         call, ms = device_ms(lambda: wk.warp_coord_grad(image, grad, px, py),
@@ -295,8 +302,65 @@ def phase_warp():
                 + (f", run-to-run {r['run_to_run_abs_diff']:.3e}"
                    if "run_to_run_abs_diff" in r else ""))
         del image, grad, px, py, grid, got, want, got1, got2, tol
+    for motion in ("rough", "smooth"):
+        label = "chain" if motion == "rough" else "chain_smooth"
+        r = out["warp_forward"][label] = phase_warp_chain(g, motion)
+        log(f"warp_forward {label} {r['shape']} {motion}: pair launch bitwise "
+            f"{r['bitwise']}, kernel {r['ms'] * 1e3:.2f} us (call {r['call_ms'] * 1e3:.2f} us), "
+            f"two single launches {r['singles_ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, grid_sample {r['library_ms'] * 1e3:.1f} us, "
+            f"bound {r['bound_ms'] * 1e3:.2f} us")
     torch.cuda.empty_cache()
     return out
+
+
+def phase_warp_chain(g, motion):
+    """K2's pair launch at a fused chain step's shapes: the label stack
+    (8, 4, 112, 112) and the video stack (8, 3, 112, 112) sampled at the
+    same coordinates, each output held bitwise against the plain version;
+    the two single launches on the same inputs beside it. `F.grid_sample`
+    computes the same function in one call on the two stacks concatenated
+    along the channels."""
+    (_, label_shape), (_, video_shape) = WARP_SHAPES[:2]
+    label, _, px, py = warp_inputs(label_shape, g, motion)
+    video = torch.rand(video_shape, device="cuda", generator=g)
+    n, _, h, w = label_shape
+    outs = wk.warp_forward_pair(label, video, px, py)
+    wants = wk.reference_warp_forward(label, px, py), wk.reference_warp_forward(video, px, py)
+    err = max(float((a - b).abs().max()) for a, b in zip(outs, wants))
+    if not all(torch.equal(a, b) for a, b in zip(outs, wants)):
+        raise AssertionError(f"K2 pair {label_shape} + {video_shape}: not bitwise the plain "
+                             f"version, max abs err {err}")
+    call, ms = device_ms(lambda: wk.warp_forward_pair(label, video, px, py),
+                         match="warp_forward_kernel")
+    _, singles = device_ms(lambda: (wk.warp_forward(label, px, py), wk.warp_forward(video, px, py)),
+                           match="warp_forward_kernel")
+    plain, _ = device_ms(lambda: (wk.reference_warp_forward(label, px, py),
+                                  wk.reference_warp_forward(video, px, py)), reps=5)
+    both, grid = torch.cat([label, video], dim=1), _grid(px, py, h, w)
+    lib, _ = device_ms(lambda: F.grid_sample(both, grid, mode="bilinear", padding_mode="border",
+                                             align_corners=False))
+    nbytes = 2 * (label.numel() + video.numel()) * 4 + 2 * px.numel() * 4
+    return dict(shape=[list(label_shape), list(video_shape)], motion=motion, max_abs_err=err,
+                bitwise=True, ms=ms, call_ms=call, singles_ms=singles, plain_ms=plain,
+                library_ms=lib, bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes")
+
+
+def count_syncs(fn):
+    """Run fn with torch's sync debug mode set to "warn": returns (fn's
+    result, the calls in it that waited for the device, counted by the
+    file:line of the Python frame that made each)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")   # before the capture: it warns that it is a prototype
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                                if "synchronizing" in str(w.message))
+    return result, sites
 
 
 def _launch_counts():
@@ -341,10 +405,11 @@ def phase_train():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
     train_counts = _launch_counts()
-    # Per fused step: a label and a video warp (K2) and their coordinate
-    # gradients (K4) in each of the T-1 chain steps; K3 for the label
-    # warps only, and not at chain step 0, whose labels are constants.
-    want_train = (3 * 2 * (t - 1), 3 * (t - 2), 3 * 2 * (t - 1))
+    # Per fused step: one pair launch (K2) for the label and the video warp
+    # and their two coordinate gradients (K4) in each of the T-1 chain
+    # steps; K3 for the label warps only, and not at chain step 0, whose
+    # labels are constants.
+    want_train = (3 * (t - 1), 3 * (t - 2), 3 * 2 * (t - 1))
     _zero_launch_counts()
     ev = {k: float(v) for k, v in eval_step(state, batches[3]).items()}
     eval_counts = _launch_counts()
@@ -362,6 +427,9 @@ def phase_train():
         raise AssertionError(f"non-finite training metrics {metrics} {ev}")
     if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
         raise AssertionError("non-finite parameters after 3 steps")
+    _, syncs = count_syncs(lambda: train_step(state, batches[3]))
+    log(f"  calls that wait for the device in one more fused step: {sum(syncs.values())} "
+        f"(information only) {dict(syncs)}")
     del state, batches
     torch.cuda.empty_cache()
 
@@ -387,7 +455,8 @@ def phase_train():
         raise AssertionError("card and CPU train steps disagree")
     names = ("warp_forward", "warp_image_grad", "warp_coord_grad")
     return {"launches": dict(zip(names, train_counts)),
-            "eval_launches": dict(zip(names, eval_counts)), "step_ms": step_ms}
+            "eval_launches": dict(zip(names, eval_counts)), "step_ms": step_ms,
+            "syncs_per_step": sum(syncs.values())}
 
 
 def phase_k1():
@@ -546,7 +615,9 @@ def main():
                 "warp_image_grad": "echoflow/ops/pallas/warp_kernel.py:81",
                 "warp_coord_grad": "echoflow/ops/pallas/warp_kernel.py:101"}
     for name, by_shape in warp.items():
-        main_shape = by_shape["label"]   # the fused chain step's label warp
+        # The fused chain step's warp: K2's pair launch (label and video at
+        # the same coordinates), K3 and K4 of its label warp.
+        main_shape = by_shape["chain" if name == "warp_forward" else "label"]
         kernels.append({
             "name": name, "route": "cuda", "source": "echoflow_torch/csrc/warp.cu",
             "replaces": replaces[name], "launches": train["launches"][name],

@@ -33,12 +33,24 @@
 // per call, ~1.2 us at 3.35 TB/s) by the launch itself (an empty grid of
 // the same size takes ~1 us on the card).
 //
-// K2: one thread per output pixel computes its corners and weights once and
-// loops over the channels, so the coordinates are read once and
-// neighbouring threads read neighbouring pixels. The TPU kernel's one-hot
-// matrices and MXU row interpolation were a workaround for slow TPU gathers
-// and are not carried over: a Hopper thread gathers its four corners
-// directly, for any H and W.
+// K2: one thread per output pixel reads its coordinates and computes its
+// corners and weights once, for one image or for two images that share the
+// coordinates (the training chain step warps its label stack and its video
+// stack at the same px, py: one launch instead of two, whose floor is
+// about 1 us each). The TPU kernel's one-hot matrices and MXU row
+// interpolation were a workaround for slow TPU gathers and are not carried
+// over: a Hopper thread gathers its four corners directly, for any H and
+// W. The kernel is compiled for 1-4 channels per image (and a generic
+// version in chunks of 4), and a thread issues every corner load of a
+// chunk, of both images, before its arithmetic: two dependent round trips
+// (coordinates, then corners). Taking the x0 + 1 corners from the next lane
+// by shuffle, as K4 does, measured slower here (the shuffles wait on the
+// neighbour's loads; the loads they replace hit the same L1 lines). Under
+// rough motion the scattered gathers bound it, and what decides their cost
+// is how many contiguous pixels an SM holds: the corners of neighbouring
+// pixels overlap in L1. So the block is about one SM's share of the pixels
+// (768 threads at the chain step), not 256 threads that several SMs take
+// in turns (PERF.md).
 //
 // K3 is a scatter: every pixel adds a term to each of its four corners in
 // every channel, and each element of d_img takes terms from about four
@@ -120,26 +132,73 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
   return __fadd_rn(a, __fmul_rn(__fsub_rn(b, a), f));   // a + (b - a) f
 }
 
-// K2: out (N, C, H, W) = bilinear sample of img at (px, py) (N, H, W).
-__global__ void __launch_bounds__(kThreads)
-warp_forward_kernel(const float* __restrict__ img, const float* __restrict__ px,
-                    const float* __restrict__ py, float* __restrict__ out,
-                    int n, int c, int h, int w) {
-  const int64_t hw = (int64_t)h * w;
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (int64_t)n * hw) return;
-  const int64_t b = i / hw, p = i - b * hw;
-  const Corner k = corner(px[i], py[i], h, w);
-  const int x1 = k.hx ? k.x0 + 1 : k.x0, y1 = k.hy ? k.y0 + 1 : k.y0;
-  const int64_t o00 = (int64_t)k.y0 * w + k.x0, o01 = (int64_t)k.y0 * w + x1;
-  const int64_t o10 = (int64_t)y1 * w + k.x0, o11 = (int64_t)y1 * w + x1;
-  const float* src = img + b * c * hw;
-  float* dst = out + b * c * hw + p;
-  for (int ch = 0; ch < c; ++ch) {
-    const float* s = src + ch * hw;
-    const float top = lerp_rn(__ldg(s + o00), __ldg(s + o01), k.fx);
-    const float bot = lerp_rn(__ldg(s + o10), __ldg(s + o11), k.fx);
-    dst[ch * hw] = lerp_rn(top, bot, k.fy);
+// K2's corner values of K channels (c0 .. c0 + K - 1, those below c) at one
+// pixel, with x1 = x0 + dx and y1 = y0 + dy / w clamped to the image.
+template <int K>
+struct Taps {
+  float v00[K], v01[K], v10[K], v11[K];
+
+  __device__ __forceinline__ void load(const float* s, int c0, int c, int hw, int dx, int dy) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const bool ch = c0 + j < c;
+      const float* sj = s + (c0 + j) * hw;
+      v00[j] = ch ? __ldg(sj) : 0.f;
+      v01[j] = ch ? __ldg(sj + dx) : 0.f;
+      v10[j] = ch ? __ldg(sj + dy) : 0.f;
+      v11[j] = ch ? __ldg(sj + dy + dx) : 0.f;
+    }
+  }
+
+  // top = v00 + (v01 - v00) fx, bot likewise, out = top + (bot - top) fy:
+  // the plain version's order, each step rounded.
+  __device__ __forceinline__ void store(float* d, int c0, int c, int hw, float fx,
+                                        float fy) const {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (c0 + j < c)
+        d[(c0 + j) * hw] = lerp_rn(lerp_rn(v00[j], v01[j], fx), lerp_rn(v10[j], v11[j], fx), fy);
+  }
+};
+
+constexpr int kAny = -1;          // a channel count known only at run time
+constexpr int kForwardMax = 1024;  // K2's largest block
+
+// K2: out_a (N, CA, H, W) and, unless CB = 0, out_b (N, CB, H, W): the
+// bilinear samples of img_a and img_b at (px, py) (N, H, W). CA, CB: 1-4
+// compiled, kAny: any count (ca_any, cb_any), in chunks of 4. Per chunk of
+// 4 channels (one chunk when both counts are compiled) every corner load of
+// both images is issued before any arithmetic. The block size is chosen at
+// launch (`forward_threads`). Offsets are int: the host refuses images of
+// 2^31 elements or more.
+template <int CA, int CB>
+__global__ void __launch_bounds__(kForwardMax)
+warp_forward_kernel(const float* __restrict__ img_a, const float* __restrict__ img_b,
+                    const float* __restrict__ px, const float* __restrict__ py,
+                    float* __restrict__ out_a, float* __restrict__ out_b,
+                    int n, int ca_any, int cb_any, int h, int w) {
+  constexpr int KA = CA > 0 ? CA : 4, KB = CB > 0 ? CB : 4;
+  const int ca = CA > 0 ? CA : ca_any;
+  const int cb = CB == kAny ? cb_any : CB;
+  const int hw = h * w, total = n * hw;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int b = i / hw, p = i - b * hw;
+  const Corner k = corner(__ldg(px + i), __ldg(py + i), h, w);
+  const int o00 = k.y0 * w + k.x0;
+  const int dx = k.hx ? 1 : 0, dy = k.hy ? w : 0;
+  const float* sa = img_a + b * ca * hw + o00;
+  const float* sb = CB != 0 ? img_b + b * cb * hw + o00 : nullptr;
+  float* da = out_a + b * ca * hw + p;
+  float* db = CB != 0 ? out_b + b * cb * hw + p : nullptr;
+  const int c = ca > cb ? ca : cb;
+  for (int c0 = 0; c0 < c; c0 += 4) {
+    Taps<KA> ta;
+    Taps<KB> tb;
+    ta.load(sa, c0, ca, hw, dx, dy);
+    if (CB != 0) tb.load(sb, c0, cb, hw, dx, dy);
+    ta.store(da, c0, ca, hw, k.fx, k.fy);
+    if (CB != 0) tb.store(db, c0, cb, hw, k.fx, k.fy);
   }
 }
 
@@ -311,6 +370,64 @@ inline unsigned blocks_for(int n, int h, int w) {
   return (unsigned)(((int64_t)n * h * w + kThreads - 1) / kThreads);
 }
 
+// K2's block size: about one SM's share of the pixels, 256 to 1024 threads.
+// A block covers contiguous pixels (whole rows at the training shapes), so
+// under scattered motion the corners its threads gather overlap in the SM's
+// L1; blocks that many SMs take in turns would each bring rows from
+// elsewhere. At the chain step's 100,352 pixels: 768 threads, 131 blocks.
+int forward_threads(int64_t pixels) {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  const int64_t share = ((pixels + sms - 1) / sms + 31) / 32 * 32;
+  return (int)(share < 256 ? 256 : share > kForwardMax ? kForwardMax : share);
+}
+
+struct ForwardArgs {
+  const float *img_a, *img_b, *px, *py;
+  float *out_a, *out_b;
+  int n, ca, cb, h, w;
+};
+
+template <int CA, int CB>
+void launch_forward(const ForwardArgs& a, int threads, cudaStream_t s) {
+  const int64_t pixels = (int64_t)a.n * a.h * a.w;
+  warp_forward_kernel<CA, CB><<<(unsigned)((pixels + threads - 1) / threads), threads, 0, s>>>(
+      a.img_a, a.img_b, a.px, a.py, a.out_a, a.out_b, a.n, a.ca, a.cb, a.h, a.w);
+}
+
+template <int CA>
+void launch_forward_cb(const ForwardArgs& a, int threads, cudaStream_t s) {
+  switch (a.cb) {
+    case 0: launch_forward<CA, 0>(a, threads, s); break;
+    case 1: launch_forward<CA, 1>(a, threads, s); break;
+    case 2: launch_forward<CA, 2>(a, threads, s); break;
+    case 3: launch_forward<CA, 3>(a, threads, s); break;
+    case 4: launch_forward<CA, 4>(a, threads, s); break;
+    default: launch_forward<CA, kAny>(a, threads, s); break;
+  }
+}
+
+// K2 for one image (cb = 0) or two at the same coordinates; ca >= 1.
+int forward(const ForwardArgs& a, int threads, void* stream) {
+  const int64_t pixels = (int64_t)a.n * a.h * a.w;
+  if (pixels == 0) return 0;
+  if (a.ca < 1 || a.cb < 0 || pixels * (a.ca > a.cb ? a.ca : a.cb) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (a.ca) {
+    case 1: launch_forward_cb<1>(a, threads, s); break;
+    case 2: launch_forward_cb<2>(a, threads, s); break;
+    case 3: launch_forward_cb<3>(a, threads, s); break;
+    case 4: launch_forward_cb<4>(a, threads, s); break;
+    default: launch_forward_cb<kAny>(a, threads, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+
 // K3's scratch, in floats: the channels-last accumulator.
 inline int64_t image_grad_scratch(int n, int c, int h, int w) {
   return (int64_t)n * h * w * ((c + 3) & ~3);
@@ -320,11 +437,22 @@ inline int64_t image_grad_scratch(int n, int c, int h, int w) {
 
 extern "C" int echoflow_warp_forward(const void* img, const void* px, const void* py,
                                      void* out, int n, int c, int h, int w, void* stream) {
-  if ((int64_t)n * h * w == 0 || c == 0) return 0;
-  warp_forward_kernel<<<blocks_for(n, h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(px),
-      static_cast<const float*>(py), static_cast<float*>(out), n, c, h, w);
-  return (int)cudaGetLastError();
+  if (c == 0) return 0;
+  return forward({static_cast<const float*>(img), nullptr, static_cast<const float*>(px),
+                  static_cast<const float*>(py), static_cast<float*>(out), nullptr,
+                  n, c, 0, h, w}, forward_threads((int64_t)n * h * w), stream);
+}
+
+// K2 for two images (N, ca, H, W) and (N, cb, H, W), ca, cb >= 1, sampled
+// at the same coordinates in one launch.
+extern "C" int echoflow_warp_forward2(const void* img_a, const void* img_b, const void* px,
+                                      const void* py, void* out_a, void* out_b,
+                                      int n, int ca, int cb, int h, int w, void* stream) {
+  if (cb < 1) return (int)cudaErrorInvalidValue;
+  return forward({static_cast<const float*>(img_a), static_cast<const float*>(img_b),
+                  static_cast<const float*>(px), static_cast<const float*>(py),
+                  static_cast<float*>(out_a), static_cast<float*>(out_b),
+                  n, ca, cb, h, w}, forward_threads((int64_t)n * h * w), stream);
 }
 
 // Floats of scratch the caller passes to echoflow_warp_image_grad.

@@ -23,6 +23,8 @@ the kernels and of echoflow's "gather" backend).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -53,12 +55,26 @@ def warp_nearest_border(image, grid_x, grid_y):
     return torch.gather(image.reshape(n, c, h * w), 2, idx).reshape(n, c, h, w)
 
 
+@functools.lru_cache(maxsize=64)
+def _base_grids(h: int, w: int, device: torch.device, dtype: torch.dtype):
+    """The base grids (1, 1, W) and (1, H, 1): float64 `np.linspace(-1, 1, n)`
+    cast to dtype, on device. Made once per key: a pageable host-to-device
+    copy would wait for all queued device work, and the training chain
+    loop asks for them at every step. The CUDA copy goes from pinned memory
+    without blocking. Callers only read them."""
+    xs = [torch.from_numpy(np.linspace(-1.0, 1.0, size)).to(dtype) for size in (w, h)]
+    if device.type == "cuda":
+        xs = [x.pin_memory().to(device, non_blocking=True) for x in xs]
+    else:
+        xs = [x.to(device) for x in xs]
+    return xs[0][None, None, :], xs[1][None, :, None]
+
+
 def offset_grids(offsets):
     """(N, 2, H, W) motion -> normalized (grid_x, grid_y), each (N, H, W)."""
     h, w = offsets.shape[-2:]
-    base_x = torch.from_numpy(np.linspace(-1.0, 1.0, w)).to(offsets.device, offsets.dtype)
-    base_y = torch.from_numpy(np.linspace(-1.0, 1.0, h)).to(offsets.device, offsets.dtype)
-    return base_x[None, None, :] + offsets[:, 0], base_y[None, :, None] + offsets[:, 1]
+    base_x, base_y = _base_grids(h, w, offsets.device, offsets.dtype)
+    return base_x + offsets[:, 0], base_y + offsets[:, 1]
 
 
 def offset_coords(offsets):

@@ -15,6 +15,11 @@ clamp). `WarpCoords` is the counterpart of the `jax.custom_vjp` of
     removed that kernel as dead code), and `warp_coord_grad` (K4) for the
     coordinates.
 
+`warp_coords_pair(image_a, image_b, px, py)` (`WarpCoordsPair`) warps two
+images at the same coordinates with one K2 launch (`warp_forward_pair`),
+as the fused training loss does with its label and video stacks; its
+backward runs K3 and K4 per image and sums the coordinate gradients.
+
 Each wrapper computes its plain version (`reference_warp_*`) for CPU
 tensors; for CUDA tensors it checks device, dtype, shape and contiguity and
 launches its kernel of `csrc/warp.cu`, or raises. `.launches` on each
@@ -152,12 +157,13 @@ def _lib():
     lib = _build.load("warp")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.echoflow_warp_forward.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.echoflow_warp_forward2.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.echoflow_warp_image_grad.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.echoflow_warp_image_grad_scratch.argtypes = [i32] * 4
     lib.echoflow_warp_image_grad_scratch.restype = ctypes.c_longlong
     lib.echoflow_warp_coord_grad.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    for fn in (lib.echoflow_warp_forward, lib.echoflow_warp_image_grad,
-               lib.echoflow_warp_coord_grad):
+    for fn in (lib.echoflow_warp_forward, lib.echoflow_warp_forward2,
+               lib.echoflow_warp_image_grad, lib.echoflow_warp_coord_grad):
         fn.restype = ctypes.c_int
     return lib
 
@@ -206,6 +212,23 @@ def warp_forward(image, px, py):
     _launch(_lib().echoflow_warp_forward, "warp_forward", image, px, py, out, n, c, h, w)
     warp_forward.launches += 1
     return out
+
+
+def warp_forward_pair(image_a, image_b, px, py):
+    """K2 for two images (N, Ca, H, W) and (N, Cb, H, W) sampled at the same
+    px, py (N, H, W): one launch (counted once in `warp_forward.launches`).
+    Returns (out_a, out_b), each bitwise `reference_warp_forward` of its
+    image."""
+    if _is_cpu(image_a):
+        return reference_warp_forward(image_a, px, py), reference_warp_forward(image_b, px, py)
+    # Both images against the same coordinates: one device, N, H and W.
+    n, ca, h, w = _check_cuda("warp_forward_pair", image_a, (px, py))
+    _, cb, _, _ = _check_cuda("warp_forward_pair", image_b, (px, py))
+    out_a, out_b = torch.empty_like(image_a), torch.empty_like(image_b)
+    _launch(_lib().echoflow_warp_forward2, "warp_forward_pair", image_a, image_b, px, py,
+            out_a, out_b, n, ca, cb, h, w)
+    warp_forward.launches += 1
+    return out_a, out_b
 
 
 def warp_image_grad(g, px, py):
@@ -265,3 +288,37 @@ def warp_coords(image, px, py):
     """Bilinear border warp of image (N, C, H, W) at unclamped pixel
     coordinates px, py (N, H, W); differentiable in all three."""
     return WarpCoords.apply(image, px, py)
+
+
+class WarpCoordsPair(torch.autograd.Function):
+    """Two images warped at the same coordinates: one K2 launch forward; in
+    the backward K3 for each image that needs a gradient and K4 for each
+    image, their coordinate gradients summed (what autograd accumulates for
+    two `warp_coords` calls on the same px, py)."""
+
+    @staticmethod
+    def forward(ctx, image_a, image_b, px, py):
+        image_a, image_b = image_a.contiguous(), image_b.contiguous()
+        px, py = px.contiguous(), py.contiguous()
+        ctx.save_for_backward(image_a, image_b, px, py)
+        return warp_forward_pair(image_a, image_b, px, py)
+
+    @staticmethod
+    def backward(ctx, g_a, g_b):
+        image_a, image_b, px, py = ctx.saved_tensors
+        g_a, g_b = g_a.contiguous(), g_b.contiguous()
+        need = ctx.needs_input_grad
+        d_a = warp_image_grad(g_a, px, py) if need[0] else None
+        d_b = warp_image_grad(g_b, px, py) if need[1] else None
+        d_px = d_py = None
+        if need[2] or need[3]:
+            dpx_a, dpy_a = warp_coord_grad(image_a, g_a, px, py)
+            dpx_b, dpy_b = warp_coord_grad(image_b, g_b, px, py)
+            d_px, d_py = dpx_a + dpx_b, dpy_a + dpy_b
+        return d_a, d_b, d_px, d_py
+
+
+def warp_coords_pair(image_a, image_b, px, py):
+    """`(warp_coords(image_a, px, py), warp_coords(image_b, px, py))` with
+    one forward launch; differentiable in all four."""
+    return WarpCoordsPair.apply(image_a, image_b, px, py)

@@ -17,9 +17,10 @@
 How the JAX forms carry over: `vmap` over samples is a batch dimension
 written out (the 4 chains x N samples of a step are one (4N, 2, H, W)
 warp; in the fused schedule one (2N, 4, H, W) label warp and one
-(2N, 3, H, W) video warp), `lax.scan` is a Python loop of T-1 steps, and
-the per-sample ED/ES indices stay masks (`torch.where`), so no step reads
-a value back to the host.
+(2N, 3, H, W) video warp at the same coordinates, one pair warp),
+`lax.scan` is a Python loop of T-1 steps, and the per-sample ED/ES
+indices stay masks (`torch.where`), so no step reads a value back to the
+host.
 
 Shapes: video (N, C, T, H, W), motion (N, 4, T, H, W), seg_logits
 (N, 2, T, H, W), labels (N, H, W) int, ed_idx/es_idx (N,) int tensors.
@@ -31,7 +32,7 @@ import torch
 
 from echoflow_torch.ops.normalize import one_hot_channels
 from echoflow_torch.ops.warp import offset_coords, warp_image_with_offsets
-from echoflow_torch.ops.warp_kernel import warp_coords
+from echoflow_torch.ops.warp_kernel import warp_coords_pair
 
 
 def soft_dice_loss(inputs, targets, smooth: float = 1.0):
@@ -127,7 +128,7 @@ def _edes_chain_table(label_ed, label_es, ed_idx, es_idx, motion):
     fwd_ids = torch.arange(t - 1, device=dev)
     bwd_ids = torch.arange(t - 1, 0, -1, device=dev)
     fids = torch.stack([fwd_ids, fwd_ids, bwd_ids, bwd_ids], dim=1)
-    offsets = torch.tensor([1, 1, -1, -1], device=dev)   # scored frame offset
+    offsets = 1 - 2 * (torch.arange(4, device=dev) // 2)   # scored frame offset: 1, 1, -1, -1
     none = torch.full_like(ed_idx, -1)
     table = {
         "init_labels": torch.stack([oh_ed, oh_es, oh_es, oh_ed], dim=1),   # (N, 4, 2, H, W)
@@ -291,8 +292,9 @@ def _fused_chain_ota(video, label_ed, label_es, ed_idx, es_idx, motion, seg_logi
     label chains, and its backward warps the backward flows of C/D, so each
     step computes the pixel coordinates of its two flows once and hands
     them to one (2N, 4, H, W) label warp (A|B on the forward flow, C|D on
-    the backward) and one (2N, 3, H, W) video warp. The video is data: its
-    warp needs no image gradient, so its backward runs no d_img kernel."""
+    the backward) and one (2N, 3, H, W) video warp, both in one
+    `warp_coords_pair` call (one K2 launch). The video is data: its warp
+    needs no image gradient, so its backward runs no d_img kernel."""
     n, c, t, h, w = video.shape
     fwd_flows, bwd_flows, tbl = _edes_chain_table(label_ed, label_es, ed_idx, es_idx, motion)
     video = video.detach()
@@ -303,9 +305,11 @@ def _fused_chain_ota(video, label_ed, label_es, ed_idx, es_idx, motion, seg_logi
         px, py = offset_coords(flows)
         lab = torch.stack([torch.cat([labels[:, 0], labels[:, 1]], dim=1),
                            torch.cat([labels[:, 2], labels[:, 3]], dim=1)], dim=1)
-        warped_lab = warp_coords(lab.reshape(2 * n, 4, h, w), px, py).reshape(n, 2, 4, h, w)
         src = torch.stack([video[:, :, i], video[:, :, t - 1 - i]], dim=1)
-        warped_vid = warp_coords(src.reshape(2 * n, c, h, w), px, py).reshape(n, 2, c, h, w)
+        warped_lab, warped_vid = warp_coords_pair(lab.reshape(2 * n, 4, h, w),
+                                                  src.reshape(2 * n, c, h, w), px, py)
+        warped_lab = warped_lab.reshape(n, 2, 4, h, w)
+        warped_vid = warped_vid.reshape(n, 2, c, h, w)
         warped = torch.stack([warped_lab[:, 0, :2], warped_lab[:, 0, 2:],
                               warped_lab[:, 1, :2], warped_lab[:, 1, 2:]], dim=1)
 

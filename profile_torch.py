@@ -12,9 +12,12 @@ device busy time and idle share, device time by layer and by kernel.
 With --train it profiles one full-width fused CLAS-FV train step instead
 (batch 4 x 3 x 32 x 112 x 112, fp32, TF32 off, after two warm-up steps),
 split by the step's ranges `echoflow_torch.train.{forward,ota_and_chains,
-backward,optimizer}`, with the warp kernels K2-K4 by name. The backward's
-kernels are launched from autograd's device thread, outside the range
-opened on the calling thread; they count for `train.backward`.
+backward,optimizer}`, with the warp kernels K2-K4 by name (ms in the step,
+launches, us per launch). The backward's kernels are launched from
+autograd's device thread, outside the range opened on the calling thread;
+they count for `train.backward`. One more step, not profiled, runs with
+torch's sync debug mode set to "warn": `syncs_per_step` counts the calls
+in it that waited for the device, by the line that made them.
 
 A layer is a `record_function` range of the engine (`echoflow_torch.<layer>`,
 see echoflow_torch/infer/pipeline.py): each device kernel or copy counts
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import nvidia_smi_line, smoke_weights
+from chip_smoke import count_syncs, nvidia_smi_line, smoke_weights
 from echoflow_torch.data.synthetic import make_beating_video
 from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
 from echoflow_torch.ops import _build
@@ -110,7 +113,7 @@ def profile_train(out_path=None):
     cfg = TrainConfig()
     state = create_train_state(0, cfg, device="cuda")
     batches = list(prefetch_to_device(
-        synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 3, seed=0),
+        synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 4, seed=0),
         "cuda"))
     step = make_train_step(fused_ota=True)
     for batch in batches[:2]:
@@ -127,18 +130,21 @@ def profile_train(out_path=None):
     launches = [b - a for a, b in zip(launches0, (wk.warp_forward.launches,
                                                   wk.warp_image_grad.launches,
                                                   wk.warp_coord_grad.launches))]
+    _, syncs = count_syncs(lambda: step(state, batches[3]))
     layers, kernels = split_device_time(prof, TRAIN_KERNELS, "train.backward")
     busy_ms = sum(kernels.values())
     warp = {}
     for (short, name), count in zip(TRAIN_KERNELS.items(), launches):
         ms = sum(v for k, v in kernels.items() if short in k)
-        warp[short] = {"ms": ms, "launches": count, "us_per_launch": ms * 1e3 / max(count, 1)}
+        warp[short] = {"ms_per_step": ms, "launches": count,
+                       "us_per_launch": ms * 1e3 / max(count, 1)}
     result = {
         "card": nvidia_smi_line(), "mode": "train", "batch": list(batches[0]["video"].shape),
         "dtype": "float32", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
         "warp_kernels": warp, "top_kernels_ms": top_kernels(kernels),
+        "syncs_per_step": sum(syncs.values()), "sync_sites": dict(syncs),
     }
     print(json.dumps(result))
     if out_path:

@@ -141,7 +141,9 @@ def _warp_inputs(shape, seed=0, motion="far"):
     """Image, output gradient and coordinates on the card. "far": offsets
     reach far past the border; "near": about 0.3 px from the identity, so
     every element of d_img takes its terms from neighbouring pixels and
-    neighbouring lanes often hold the same corners. Some coordinates sit
+    neighbouring lanes often hold the same corners; "shift": a uniform
+    0.3 px shift, so nearly every lane's x0 + 1 corners are the next lane's
+    x0 corners (the shuffle paths of K2, K3 and K4). Some coordinates sit
     exactly on the last row and column."""
     n, c, h, w = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -151,7 +153,8 @@ def _warp_inputs(shape, seed=0, motion="far"):
         px = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * w - 0.5
         py = (torch.rand((n, h, w), device="cuda", generator=g) * 1.4 - 0.2) * h - 0.5
     else:
-        noise = 0.3 * torch.randn((2, n, h, w), device="cuda", generator=g)
+        noise = 0.3 * torch.randn((2, n, h, w), device="cuda", generator=g) \
+            if motion == "near" else torch.full((2, n, h, w), 0.3, device="cuda")
         px = torch.arange(w, device="cuda", dtype=torch.float32) + noise[0]
         py = torch.arange(h, device="cuda", dtype=torch.float32)[:, None] + noise[1]
     px[:, ::3, ::4] = w - 1.0
@@ -160,7 +163,7 @@ def _warp_inputs(shape, seed=0, motion="far"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("motion", ["far", "near"])
+@pytest.mark.parametrize("motion", ["far", "near", "shift"])
 @pytest.mark.parametrize("shape", WARP_SHAPES)
 def test_warp_kernels_match_plain(cuda, shape, motion):
     """K2 and K4 repeat the plain versions' elementwise arithmetic in the
@@ -217,6 +220,124 @@ def test_warp_kernels_reject_what_they_cannot_take(cuda):
         wk.warp_coord_grad(image, grad[:, :2].contiguous(), px, py)
 
 
+# Channel pairs of the pair launch: the chain step's (label 4, video 3),
+# single channels, and the generic chunks on either side.
+CHANNEL_PAIRS = [(4, 3), (1, 1), (3, 60), (7, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("motion", ["far", "near", "shift"])
+@pytest.mark.parametrize("channels", CHANNEL_PAIRS)
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_forward_pair_matches_plain(cuda, shape, channels, motion):
+    """One launch (one count) warps both images, each bitwise the plain
+    version of its own."""
+    from echoflow_torch.ops import warp_kernel as wk
+
+    n, _, h, w = shape
+    image_a, _, px, py = _warp_inputs((n, channels[0], h, w), motion=motion)
+    image_b = torch.rand((n, channels[1], h, w), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(5))
+    before = wk.warp_forward.launches
+    out_a, out_b = wk.warp_forward_pair(image_a, image_b, px, py)
+    torch.cuda.synchronize()
+    assert wk.warp_forward.launches == before + 1
+    assert torch.equal(out_a, wk.reference_warp_forward(image_a, px, py))
+    assert torch.equal(out_b, wk.reference_warp_forward(image_b, px, py))
+
+
+@pytest.mark.cuda
+def test_warp_forward_pair_rejects_what_it_cannot_take(cuda):
+    from echoflow_torch.ops import warp_kernel as wk
+
+    image, _, px, py = _warp_inputs((2, 4, 8, 8))
+    video = torch.rand(2, 3, 8, 8, device="cuda")
+    before = wk.warp_forward.launches
+    for bad in (torch.rand(3, 3, 8, 8, device="cuda"),    # N
+                torch.rand(2, 3, 9, 8, device="cuda"),    # H
+                torch.rand(2, 3, 8, 7, device="cuda"),    # W
+                video.double(),                           # dtype
+                torch.rand(2, 3, 8, 8, device="cuda").transpose(2, 3)):   # not contiguous
+        with pytest.raises(ValueError):
+            wk.warp_forward_pair(image, bad, px, py)
+        with pytest.raises(ValueError):
+            wk.warp_forward_pair(bad, image, px, py)
+    with pytest.raises(ValueError):
+        wk.warp_forward_pair(image, video, px[:1], py[:1])
+    with pytest.raises(ValueError):
+        wk.warp_forward_pair(image, video.cpu(), px, py)
+    assert wk.warp_forward.launches == before
+
+
+@pytest.mark.cuda
+def test_warp_coords_pair_autograd_launches_and_gradients(cuda):
+    """The fused loss's shape of use: a label stack that needs a gradient,
+    a video stack that does not. Forward K2 once; backward K3 once (label
+    only) and K4 twice. The coordinate gradients are bitwise what two
+    `warp_coords` calls give; the label's d_img within K3's bound."""
+    from echoflow_torch.ops import warp_kernel as wk
+
+    label, grad, px, py = _warp_inputs((4, 4, 20, 28), motion="near")
+    video = torch.rand(4, 3, 20, 28, device="cuda")
+    g_b = torch.randn(4, 3, 20, 28, device="cuda")
+    runs = []
+    for pair in (True, False):
+        lab = label.clone().requires_grad_()
+        x, y = px.clone().requires_grad_(), py.clone().requires_grad_()
+        before = (wk.warp_forward.launches, wk.warp_image_grad.launches,
+                  wk.warp_coord_grad.launches)
+        if pair:
+            out_a, out_b = wk.warp_coords_pair(lab, video, x, y)
+        else:
+            out_a, out_b = wk.warp_coords(lab, x, y), wk.warp_coords(video, x, y)
+        ((out_a * grad).sum() + (out_b * g_b).sum()).backward()
+        torch.cuda.synchronize()
+        counts = tuple(b - a for a, b in zip(before, (
+            wk.warp_forward.launches, wk.warp_image_grad.launches, wk.warp_coord_grad.launches)))
+        runs.append((counts, out_a.detach(), out_b.detach(), lab.grad, x.grad, y.grad))
+    (c_pair, *got), (c_two, *want) = runs
+    assert c_pair == (1, 1, 2) and c_two == (2, 1, 2)
+    for i in (0, 1, 3, 4):
+        assert torch.equal(got[i], want[i])
+    tol = wk.image_grad_tolerance(grad, px, py)
+    assert bool(((got[2] - wk.reference_warp_image_grad(grad, px, py)).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_fused_loss_makes_no_host_sync(cuda):
+    """`clasfv_total_loss_fused`, forward and backward, at the full-width
+    step's shape (batch 4 x 3 x 32 x 112 x 112) with
+    `torch.cuda.set_sync_debug_mode("error")`: no call in it waits for the
+    device. The first call makes the cached base grids; the checked call
+    is the second, as every step after a run's first."""
+    from echoflow_torch.train.losses import clasfv_total_loss_fused
+
+    n, c, t, h, w = 4, 3, 32, 112, 112
+    g = torch.Generator(device="cuda").manual_seed(0)
+    video = torch.rand((n, c, t, h, w), device="cuda", generator=g)
+    labels = (torch.rand((2, n, h, w), device="cuda", generator=g) > 0.5).long()
+    ed_idx = torch.tensor([0, 3, 10, 20], device="cuda")
+    es_idx = torch.tensor([t - 1, 12, 4, 21], device="cuda")
+
+    def step():
+        seg = (2.0 * torch.randn((n, 2, t, h, w), device="cuda", generator=g)).requires_grad_()
+        motion = torch.tanh(0.05 * torch.randn((n, 4, t, h, w), device="cuda",
+                                               generator=g)).requires_grad_()
+        total, _ = clasfv_total_loss_fused(video, seg, motion, labels[0], labels[1],
+                                           ed_idx, es_idx)
+        total.backward()
+        return total.detach(), seg.grad, motion.grad
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
 @pytest.mark.cuda
 def test_train_step_on_the_card_matches_the_cpu_port(cuda):
     """One fused step at (2, 3, 8, 32, 32) on synthetic echo clips from the
@@ -242,8 +363,8 @@ def test_train_step_on_the_card_matches_the_cpu_port(cuda):
         state = create_train_state(3, cfg, device=dev)
         before = wk.warp_forward.launches
         state, m = make_train_step()(state, {k: v.to(dev) for k, v in batch.items()})
-        if dev == "cuda":
-            assert wk.warp_forward.launches == before + 2 * (t - 1)
+        if dev == "cuda":   # one pair launch per chain step
+            assert wk.warp_forward.launches == before + (t - 1)
         out[dev] = (float(m["loss"]), {k: p.grad.detach().double().cpu()
                                        for k, p in state.model.named_parameters()})
     (lc, gc), (lh, gh) = out["cuda"], out["cpu"]

@@ -205,3 +205,46 @@ def test_fused_schedule_equals_unfused_in_the_port(data):
         _close_value(a1[key], a0[key])
     _close_grad(s1.numpy(), s0.numpy())
     _close_grad(m1.numpy(), m0.numpy())
+
+
+def test_fused_loss_makes_one_pair_warp_per_chain_step(data, monkeypatch):
+    """`clasfv_total_loss_fused` warps each chain step's label and video
+    stacks with one `warp_coords_pair` call (T-1 calls, no single-image
+    warp), and computes bitwise what two `warp_coords` calls at the same
+    coordinates gave, in value and gradient; its value still equals the
+    unfused schedule's."""
+    from echoflow_torch.ops import warp_kernel as tk
+
+    d = data
+    real = tl.warp_coords_pair
+    calls = []
+
+    def counted(a, b, px, py):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return real(a, b, px, py)
+
+    def two_singles(a, b, px, py):
+        return tk.warp_coords(a, px, py), tk.warp_coords(b, px, py)
+
+    def single(*args):
+        raise AssertionError("the fused loss made a single-image warp")
+
+    def run(fn, pair=None):
+        if pair is not None:
+            monkeypatch.setattr(tl, "warp_coords_pair", pair)
+            monkeypatch.setattr(tl, "warp_image_with_offsets", single)
+        seg = torch.from_numpy(d["seg"].copy()).requires_grad_()
+        motion = torch.from_numpy(d["motion"].copy()).requires_grad_()
+        total, _ = fn(torch.from_numpy(d["video"]), seg, motion,
+                      *(torch.from_numpy(d[k]) for k in ("ed_label", "es_label",
+                                                          "ed_idx", "es_idx")))
+        total.backward()
+        return total.detach(), seg.grad, motion.grad
+
+    fused = run(tl.clasfv_total_loss_fused, counted)
+    assert calls == [((2 * N, 4, H, W), (2 * N, 3, H, W))] * (T - 1)
+    for x, y in zip(fused, run(tl.clasfv_total_loss_fused, two_singles)):
+        assert torch.equal(x, y)
+    monkeypatch.undo()
+    unfused = run(tl.clasfv_total_loss)
+    _close_value(fused[0], unfused[0])

@@ -189,6 +189,104 @@ def test_cpu_warp_coords_asks_no_image_gradient_it_does_not_need(monkeypatch):
     assert torch.equal(ti.grad, want)
 
 
+# Odd W, and H*W not a multiple of a warp; channel pairs as the training
+# chain step's (label 4, video 3), single channels, and a generic count.
+PAIR_SHAPES = [(2, 15, 17), (3, 7, 5), (1, 9, 13)]
+CHANNEL_PAIRS = [(4, 3), (1, 1), (2, 7)]
+
+
+def _pair_inputs(nhw, channels, scale=0.3, seed=0):
+    n, h, w = nhw
+    ca, cb = channels
+    rng = np.random.RandomState(seed)
+    a = rng.rand(n, ca, h, w).astype(np.float32)
+    b = rng.rand(n, cb, h, w).astype(np.float32)
+    offsets = (scale * rng.randn(n, 2, h, w)).astype(np.float32)
+    return a, b, offsets
+
+
+@pytest.mark.parametrize("channels", CHANNEL_PAIRS)
+@pytest.mark.parametrize("nhw", PAIR_SHAPES)
+def test_warp_coords_pair_equals_two_warp_coords(nhw, channels):
+    """Forward, d_img of both images, d_px and d_py bitwise those of two
+    `warp_coords` calls on the same coordinates (autograd adds the two
+    calls' coordinate gradients; the pair adds K4's two results)."""
+    a, b, offsets = _pair_inputs(nhw, channels)
+    rng = np.random.RandomState(1)
+    g_a = torch.from_numpy(rng.randn(*a.shape).astype(np.float32))
+    g_b = torch.from_numpy(rng.randn(*b.shape).astype(np.float32))
+    got = []
+    for pair in (True, False):
+        ta, tb = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b).requires_grad_()
+        px, py = (t.detach().requires_grad_() for t in _coords(offsets))
+        if pair:
+            out_a, out_b = tkernel.warp_coords_pair(ta, tb, px, py)
+        else:
+            out_a, out_b = tkernel.warp_coords(ta, px, py), tkernel.warp_coords(tb, px, py)
+        ((out_a * g_a).sum() + (out_b * g_b).sum()).backward()
+        got.append([out_a.detach(), out_b.detach(), ta.grad, tb.grad, px.grad, py.grad])
+    for x, y in zip(*got):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("channels", CHANNEL_PAIRS)
+@pytest.mark.parametrize("nhw,scale", [((2, 15, 17), 0.3), ((3, 7, 5), 3.0)])
+def test_warp_forward_pair_equals_echoflow_gather(gather_backend, nhw, scale, channels):
+    """Each output of the pair warp bit for bit echoflow's gather warp of
+    its image (the oracle of `test_forward_equals_echoflow_gather`)."""
+    a, b, offsets = _pair_inputs(nhw, channels, scale)
+    px, py = _coords(offsets)
+    outs = tkernel.warp_forward_pair(torch.from_numpy(a), torch.from_numpy(b), px, py)
+    for image, out in zip((a, b), outs):
+        want = jwarp.warp_image_with_offsets(jnp.asarray(image), jnp.asarray(offsets))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def test_warp_coords_pair_asks_no_image_gradient_for_the_video(monkeypatch):
+    """The fused loss's video stack needs no gradient: the pair's backward
+    computes d_img (on the card: launches K3) for the label stack only,
+    and d_px, d_py from both images."""
+    a, b, offsets = _pair_inputs((2, 8, 8), (4, 3))
+    px, py = (t.requires_grad_() for t in _coords(offsets))
+    ta, tb = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b)
+    calls, coord_calls = [], []
+    real, real_coord = tkernel.warp_image_grad, tkernel.warp_coord_grad
+    monkeypatch.setattr(tkernel, "warp_image_grad", lambda *x: calls.append(1) or real(*x))
+    monkeypatch.setattr(tkernel, "warp_coord_grad",
+                        lambda *x: coord_calls.append(1) or real_coord(*x))
+    out_a, out_b = tkernel.warp_coords_pair(ta, tb, px, py)
+    (out_a.sum() + out_b.sum()).backward()
+    assert calls == [1] and coord_calls == [1, 1]
+    assert tb.grad is None and px.grad is not None
+    want = tkernel.reference_warp_image_grad(torch.ones_like(ta), px.detach(), py.detach())
+    assert torch.equal(ta.grad, want)
+
+
+def test_offset_grids_come_from_a_cache():
+    """The base grids are float64 `np.linspace` cast to the offsets' dtype,
+    bitwise, made once per (H, W, device, dtype): the same tensors come
+    back for the same key, and a new size, dtype or device gets its own."""
+    _, offsets = _inputs((2, 1, 15, 17), 0.4)
+    t = torch.from_numpy(offsets)
+    gx, gy = twarp.offset_grids(t)
+    bx = torch.from_numpy(np.linspace(-1.0, 1.0, 17)).to(torch.float32)
+    by = torch.from_numpy(np.linspace(-1.0, 1.0, 15)).to(torch.float32)
+    assert torch.equal(gx, bx[None, None, :] + t[:, 0])
+    assert torch.equal(gy, by[None, :, None] + t[:, 1])
+
+    cpu = torch.device("cpu")
+    first = twarp._base_grids(15, 17, cpu, torch.float32)
+    assert all(x is y for x, y in zip(first, twarp._base_grids(15, 17, cpu, torch.float32)))
+    for key in ((17, 15, cpu, torch.float32), (15, 17, cpu, torch.float64),
+                (15, 17, torch.device("meta"), torch.float32)):
+        other = twarp._base_grids(*key)
+        assert all(x is not y for x, y in zip(first, other))
+        assert other[0].shape == (1, 1, key[1]) and other[1].shape == (1, key[0], 1)
+        assert other[0].dtype == key[3] and other[0].device == key[2]
+    np.testing.assert_array_equal(twarp._base_grids(15, 17, cpu, torch.float64)[0][0, 0].numpy(),
+                                  np.linspace(-1.0, 1.0, 17))
+
+
 def test_unknown_mode_and_device_raise():
     image, offsets = _inputs((1, 1, 4, 4), 0.1)
     with pytest.raises(ValueError):
@@ -198,6 +296,11 @@ def test_unknown_mode_and_device_raise():
         tkernel.warp_forward(torch.zeros(1, 1, 2, 2, device="meta"),
                              torch.zeros(1, 2, 2, device="meta"),
                              torch.zeros(1, 2, 2, device="meta"))
+    with pytest.raises(ValueError):
+        tkernel.warp_forward_pair(torch.zeros(1, 1, 2, 2, device="meta"),
+                                  torch.zeros(1, 3, 2, 2, device="meta"),
+                                  torch.zeros(1, 2, 2, device="meta"),
+                                  torch.zeros(1, 2, 2, device="meta"))
 
 
 
