@@ -36,11 +36,28 @@ Phases (any failure raises and the script exits nonzero):
      TF32 off, 3 steps of `make_train_step(fused_ota=True)` at batch
      4 x 3 x 32 x 112 x 112 on synthetic samples, then one eval step, with
      the warp launch counts zeroed just before and read just after each and
-     held against the counts the code implies; the count of calls in one
-     more fused step that wait for the device (torch's sync debug mode,
-     information only); then one small step on the card and on the CPU from
+     held against the counts the code implies; the calls in one more fused
+     step that wait for the device (torch's sync debug mode), which must be
+     none; then one small step on the card and on the CPU from
      the same state (loss, all gradients, and each leaf's gradient by its
-     relative L2 error).
+     relative L2 error);
+  7. clips and propagation at full width: `ClipForward` (fp32, 8 clips a
+     chunk, with the motion head) on the 16 clips around one ED frame of
+     a 176-frame video, K1's launch count zeroed just before and held at
+     ceil(16 / 8) = 2; labels and motion (motion head x10, a few pixels
+     between frames) against the module's forward on the card and the CPU
+     port on 2 clips, and the probabilities on the same model with its
+     seg head divided by 50 (x50 logits move a probability 50 times as
+     far); then
+     `deform_forback` (nearest), `deform_forback(mode="bilinear")` and
+     `deform_images_forback` on their motion, K2's launches held at 0,
+     2 x 31 and 1 + 31, each rollout bitwise the same call on the plain
+     warp; times of each call, K1 a launch against its bound with motion,
+     K2 a launch against its byte bound;
+  8. the CLI: `motion_segment_torch.main` on a written 96-frame AVI (or,
+     without cv2, its `run` body on the frames), 5 shifts, `-c all` (less
+     the GIF without matplotlib or PIL), the smoke weights as an echoflow
+     `.pkl`: artifact names, masks, finite EFs, wall time.
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -49,6 +66,7 @@ the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -171,7 +189,8 @@ def k1_bound(projs, with_motion, out_hw=(112, 112)):
 
 def device_ms(fn, reps: int = 20, match: str | None = None):
     """Device time per call of `fn` from torch.profiler: the summed duration
-    of the device kernels (and memsets/copies) it launches, over `reps`
+    of the device kernels (and memsets/copies) it launches, not the device
+    mirrors of the `echoflow_torch.*` ranges around them, over `reps`
     back-to-back calls after one warm-up; with `match`, also the time of
     the kernels whose name contains it. A session that records no device
     event (it happens, rarely, on the card's sandbox) is repeated up to
@@ -185,7 +204,10 @@ def device_ms(fn, reps: int = 20, match: str | None = None):
             torch.cuda.synchronize()
         total = matched = 0.0
         for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CPU:
+            # A record_function range has a device-side mirror spanning the
+            # kernels inside it: counted, it would count them twice.
+            if evt.device_type == torch.autograd.DeviceType.CPU or \
+                    evt.name.startswith("echoflow_torch."):
                 continue
             total += evt.device_time_total
             if match is not None and match in evt.name:
@@ -429,7 +451,9 @@ def phase_train():
         raise AssertionError("non-finite parameters after 3 steps")
     _, syncs = count_syncs(lambda: train_step(state, batches[3]))
     log(f"  calls that wait for the device in one more fused step: {sum(syncs.values())} "
-        f"(information only) {dict(syncs)}")
+        f"(want 0) {dict(syncs)}")
+    if syncs:
+        raise AssertionError(f"the fused train step waits for the device: {dict(syncs)}")
     del state, batches
     torch.cuda.empty_cache()
 
@@ -568,6 +592,258 @@ def phase_main_path():
         f"mismatch vs fp32 {float((bf16 != masks[0]).mean()):.2e} (information only)")
     return launches
 
+CLIP_TOL = 1e-4        # probabilities and motion: folded (K1) vs the module's forward, fp32
+SEG_GAIN = 50.0        # smoke_weights' seg head gain
+MOTION_GAIN = 10.0     # phase 7's motion head gain
+CLIP_STARTS = 16       # clips of phase 7, the starts covering one ED frame
+CLIP_CHUNK = 8
+
+
+@contextlib.contextmanager
+def plain_warp():
+    """Inside the block the warp's forward runs its plain PyTorch version on
+    CUDA tensors too (the propagation's reference on the card)."""
+    kernel = wk.warp_forward
+    wk.warp_forward = wk.reference_warp_forward
+    try:
+        yield
+    finally:
+        wk.warp_forward = kernel
+
+
+def with_plain_warp(fn):
+    def run():
+        with plain_warp():
+            return fn()
+    return run
+
+
+def k2_bytes(n, c, h, w):
+    """K2's least traffic: the image read and the output written once, px
+    and py read once."""
+    return 2 * n * c * h * w * 4 + 2 * n * h * w * 4
+
+
+def clip_workload():
+    """Phase 7's inputs: the smoke weights with the motion head x10 (a few
+    pixels between frames; the init's is ~0.1 px), a 176-frame synthetic
+    video in [0, 1], its second ED frame and the first 16 clip starts that
+    cover it."""
+    from echoflow_torch.infer.ef import start_points_covering_frame
+
+    state = smoke_weights()
+    state["motion_head.weight"] = state["motion_head.weight"] * MOTION_GAIN
+    beat = make_beating_video(num_frames=176, period=44.0, seed=4)
+    video = zeroone_normalizer(beat.video.copy())
+    ed = int(beat.ed_frames[1])
+    return state, video, ed, start_points_covering_frame(ed, video.shape[1])[:CLIP_STARTS]
+
+
+def rollout_inputs(labels, motion, clips, ed, starts):
+    """The rollouts' inputs on the card from the clip outputs: each clip's
+    one-hot label at the ED frame and at its last frame, its motion, and
+    its frames."""
+    dev = torch.device("cuda")
+    lab = torch.from_numpy(labels).to(dev).long()
+    rows = torch.arange(len(starts), device=dev)
+    ed_in_clip = torch.from_numpy(ed - starts).to(dev)
+    one_hot = lambda m: torch.stack([1 - m, m], dim=1).float()   # noqa: E731
+    return (one_hot(lab[rows, ed_in_clip]), one_hot(lab[:, -1]),
+            torch.from_numpy(motion).to(dev), torch.from_numpy(clips).to(dev))
+
+
+def phase_clips():
+    """Phase 7: `ClipForward` with the motion head at full width on the 16
+    clips around one ED frame of a 176-frame video, against the module's
+    forward on the card and the CPU port; then the rollouts of
+    `infer/propagate.py` on their motion, each against the same call on the
+    plain warp."""
+    from echoflow_torch.infer.clips import ClipForward
+    from echoflow_torch.infer.propagate import deform_forback, deform_images_forback
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, video, ed, starts = clip_workload()
+    clip_fwd = ClipForward(state, dtype=torch.float32, forward_chunk=CLIP_CHUNK)
+    clip_fwd.segment_start_points(video, starts[:CLIP_CHUNK])   # warm-up
+    torch.cuda.synchronize()
+
+    decoder_heads.launches = 0
+    t0 = time.perf_counter()
+    labels, probs, motion = clip_fwd.segment_start_points(video, starts)
+    clip_seconds = time.perf_counter() - t0
+    launches = decoder_heads.launches
+    want_launches = -(-len(starts) // CLIP_CHUNK)
+    n = len(starts)
+    log(f"clips: {n} clips around ED frame {ed} (starts {starts[0]}..{starts[-1]}), "
+        f"K1 launches {launches}, implied {want_launches}; ClipForward "
+        f"{clip_seconds * 1e3:.1f} ms (host clock, to numpy)")
+    if launches != want_launches:
+        raise AssertionError("ClipForward's K1 launches differ from ceil(clips / chunk)")
+    if labels.shape != (n, 32, 112, 112) or motion.shape != (n, 4, 32, 112, 112) \
+            or not (np.isfinite(probs).all() and np.isfinite(motion).all()):
+        raise AssertionError(f"bad clip outputs {labels.shape} {probs.shape} {motion.shape}")
+
+    # The labels and motion of the smoke model are held against the
+    # module's forward on the card (16 clips) and the CPU port (2 clips).
+    # Its probabilities are not: its seg head is x50, so its logits are 50
+    # times larger than the init's and fp32 rounding moves a probability
+    # 50 times as far (2.55e-4 on the card). They are held on the same
+    # model with the seg head's weight and bias divided by 50 (logits / 50,
+    # the init's scale, for which the 1e-4 bar is meant).
+    clips = np.stack([video[:, s:s + 32] for s in starts])
+    unit = dict(state)
+    for key in ("segmentation_head.weight", "segmentation_head.bias"):
+        unit[key] = state[key] / SEG_GAIN
+    unit_probs = ClipForward(unit, forward_chunk=CLIP_CHUNK, with_motion=False)(clips)[0]
+    refs = (("module forward on the card", slice(None),
+             ClipForward(state, forward_chunk=CLIP_CHUNK, fold_bn=False)
+             .segment_start_points(video, starts),
+             ClipForward(unit, forward_chunk=CLIP_CHUNK, fold_bn=False, with_motion=False)),
+            ("CPU port, 2 clips", slice(0, 2),
+             ClipForward(state, device="cpu", forward_chunk=CLIP_CHUNK)
+             .segment_start_points(video, starts[:2]),
+             ClipForward(unit, device="cpu", forward_chunk=CLIP_CHUNK, with_motion=False)))
+    for name, sl, (r_labels, r_probs, r_motion), unit_ref in refs:
+        mismatch = float((labels[sl] != r_labels).mean())
+        m_err = float(np.abs(motion[sl] - r_motion).max())
+        p50_err = float(np.abs(probs[sl] - r_probs).max())
+        p_err = float(np.abs(unit_probs[sl] - unit_ref(clips[sl])[0]).max())
+        log(f"  clips vs {name}: labels mismatch {mismatch:.2e} (limit {MASK_TOL:.0e}), "
+            f"motion {m_err:.2e}, probabilities of the seg head / {SEG_GAIN:.0f} {p_err:.2e} (limit "
+            f"{CLIP_TOL:.0e}); probabilities at x{SEG_GAIN:.0f} {p50_err:.2e} (information)")
+        if mismatch > MASK_TOL or p_err > CLIP_TOL or m_err > CLIP_TOL:
+            raise AssertionError(f"ClipForward disagrees with the {name}")
+    del refs, unit_probs
+    ms_call, k1_ms = device_ms(lambda: clip_fwd(clips), reps=3, match="decoder_heads_kernel")
+    meta = [torch.empty(CLIP_CHUNK, 32, r, r, 64, device="meta") for r in (56, 28, 14, 7)]
+    k1_b = k1_bound(meta, with_motion=True)
+    k1_per_launch = k1_ms / want_launches
+    log(f"  K1 with motion on the clip path: {k1_per_launch:.3f} ms a launch of "
+        f"{CLIP_CHUNK} clips, bound {k1_b['bound_ms']:.3f} ms by {k1_b['bound_by']} "
+        f"(fp32 CUDA-core bound {k1_b['bounds']['fp32_cuda_cores_ms']:.3f}); device time "
+        f"of a ClipForward call {ms_call:.2f} ms")
+
+    label_ed, label_es, mot, images = rollout_inputs(labels, motion, clips, ed, starts)
+    calls = {
+        "deform_forback": (lambda: deform_forback(label_ed, label_es, mot), 0),
+        "deform_forback_bilinear": (lambda: deform_forback(label_ed, label_es, mot,
+                                                           mode="bilinear"), 2 * 31),
+        "deform_images_forback": (lambda: deform_images_forback(images, mot), 1 + 31),
+    }
+    t = mot.shape[2]
+    k2_bound = {"deform_forback": 0.0,
+                "deform_forback_bilinear": 2 * (t - 1) * k2_bytes(n, 2, 112, 112),
+                "deform_images_forback": (k2_bytes((t - 1) * n, 3, 112, 112)
+                                          + (t - 1) * k2_bytes(n, 3, 112, 112))}
+    rollouts = {}
+    for name, (fn, want) in calls.items():
+        wk.warp_forward.launches = 0
+        got = fn()
+        count = wk.warp_forward.launches
+        with plain_warp():
+            ref = fn()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        _, k2_ms = device_ms(fn, reps=3, match="warp_forward_kernel")
+        plain_ms = cuda_ms(with_plain_warp(fn), reps=3, warmup=1)
+        bound = k2_bound[name] / PEAK_HBM_BYTES * 1e3
+        rollouts[name] = dict(launches=count, implied=want, bitwise=bitwise, max_abs_err=err,
+                              ms=ms, k2_ms=k2_ms, plain_ms=plain_ms, k2_bound_ms=bound,
+                              shape=[list(got[0].shape), list(got[1].shape)])
+        log(f"  {name}: K2 launches {count}, implied {want}; bitwise the plain warp {bitwise} "
+            f"(max abs err {err:.1e}); call {ms:.3f} ms, K2 {k2_ms:.4f} ms "
+            f"({k2_ms * 1e3 / max(count, 1):.2f} us a launch; byte bound {bound:.4f} ms), "
+            f"plain warp {plain_ms:.3f} ms; out {rollouts[name]['shape']}")
+        if count != want or not bitwise:
+            raise AssertionError(f"{name}: K2 launches {count} (want {want}), bitwise {bitwise}")
+        del got, ref
+    del mot, images
+    torch.cuda.empty_cache()
+    bilinear = [r for r in rollouts.values() if r["implied"]]
+    k2_launches = sum(r["implied"] for r in bilinear)   # = the counts, checked above
+    return {"clip_launches": launches, "clip_seconds": clip_seconds,
+            "k1_ms_per_launch": k1_per_launch, "k1_bound_ms": k1_b["bound_ms"],
+            "k1_bound_by": k1_b["bound_by"], "k2_launches": k2_launches,
+            "k2_ms_per_launch": sum(r["k2_ms"] for r in bilinear) / k2_launches,
+            "k2_bound_ms_per_launch": sum(r["k2_bound_ms"] for r in bilinear) / k2_launches,
+            "rollouts": rollouts}
+
+
+def write_echoflow_pkl(path, state):
+    """`state` (the port's state dict) as an echoflow training checkpoint
+    (the pickled numpy tree `motion_segment.py` reads), written without
+    jax."""
+    import pickle
+
+    from echoflow_torch.models.convert import variables_from_state_dict
+
+    variables = variables_from_state_dict(state)
+    payload = {"state": {"step": 0, "params": variables["params"],
+                         "batch_stats": variables["batch_stats"], "opt_state": None,
+                         "rng": None}, "extra": {}}
+    with open(path, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def phase_cli():
+    """Phase 8: the CLI, `motion_segment_torch.py`, on the card with the
+    smoke weights as an echoflow `.pkl`: `main` on a written 96-frame AVI
+    where cv2 is present, else its `run` body on the RGB frames of the same
+    synthetic video. Artifacts that need a missing host package are
+    skipped, and said so."""
+    import importlib.util
+    import os
+    import pickle
+    import tempfile
+
+    import motion_segment_torch as cli
+    from echoflow_torch.data.synthetic import write_synthetic_avi
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "matplotlib", "PIL", "pandas")}
+    gif = have["matplotlib"] and have["PIL"]
+    content = "all" if gif else "binary,binary_video"
+    skipped = [] if gif else ["echo_annotated.gif (needs matplotlib and PIL)"]
+    if not have["cv2"]:
+        skipped.append("the AVI write and decode (needs cv2): run() on the frames instead")
+    log(f"cli: host packages {have}; skipped: {skipped or 'nothing'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl, avi, out = (os.path.join(tmp, f) for f in ("smoke.pkl", "echo.avi", "out"))
+        write_echoflow_pkl(pkl, smoke_weights())
+        argv = ["-p", avi, "-m", pkl, "-f", "5", "-s", "1", "-c", content, "-o", out]
+        t0 = time.perf_counter()
+        if have["cv2"]:
+            write_synthetic_avi(avi, num_frames=96, period=24.0, seed=3)
+            t0 = time.perf_counter()
+            segs, efs, pairs = cli.main(argv)
+        else:
+            frames = make_beating_video(num_frames=96, period=24.0, seed=3).video
+            segs, efs, pairs = cli.run(zeroone_normalizer(frames.astype(np.uint8)),
+                                       cli.parse_args(argv))
+        seconds = time.perf_counter() - t0
+        files = sorted(os.listdir(out))
+        want = {"echo_whole_video_segmentation.pkl"}
+        want |= {f"echo_ED_Frame_{ed}_segmentation.pkl" for ed, _ in pairs}
+        want |= {f"echo_ES_Frame_{es}_segmentation.pkl" for _, es in pairs}
+        if gif:
+            want.add("echo_annotated.gif")
+        with open(os.path.join(out, "echo_whole_video_segmentation.pkl"), "rb") as f:
+            whole = pickle.load(f)
+    log(f"  CLI {'main' if have['cv2'] else 'run'}: {seconds:.2f} s wall (weights, engine, "
+        f"5 shifts, EF, artifacts); masks {segs.shape} {segs.dtype}, foreground "
+        f"{float(segs.mean()):.3f}; pairs {pairs}; EF {efs}; artifacts {files}")
+    if set(files) != want:
+        raise AssertionError(f"CLI artifacts {files}, want {sorted(want)}")
+    if segs.shape != (96, 112, 112) or segs.dtype != np.uint8 or segs.max() > 1 \
+            or not np.array_equal(whole, segs):
+        raise AssertionError(f"bad CLI masks {segs.shape} {segs.dtype}")
+    if not all(np.isfinite(e) for e in efs):
+        raise AssertionError(f"non-finite EF {efs}")
+    return {"seconds": seconds, "used": "main" if have["cv2"] else "run", "skipped": skipped,
+            "host_packages": have, "pairs": len(pairs), "efs": efs}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -589,6 +865,8 @@ def main():
     launches = phase_main_path()
     warp = phase_warp()
     train = phase_train()
+    clips = phase_clips()
+    cli = phase_cli()
 
     main_variant = k1[False]
     kernels = [{
@@ -610,6 +888,10 @@ def main():
         "ms_with_motion": k1[True]["ms"],
         "plain_ms_with_motion": k1[True]["plain_ms"],
         "bound_ms_with_motion": k1[True]["bound_ms"],
+        # Phase 7: the clip path's launches (with motion, 8 clips a launch).
+        "clip_launches": clips["clip_launches"],
+        "clip_ms": clips["k1_ms_per_launch"],
+        "clip_bound_ms": clips["k1_bound_ms"],
     }]
     replaces = {"warp_forward": "echoflow/ops/pallas/warp_kernel.py:67",
                 "warp_image_grad": "echoflow/ops/pallas/warp_kernel.py:81",
@@ -627,6 +909,12 @@ def main():
                                            "library_ms")},
             "shapes": by_shape,
         })
+    # Phase 7: K2 in the bilinear rollouts of infer/propagate.py.
+    next(k for k in kernels if k["name"] == "warp_forward").update(
+        inference_launches=clips["k2_launches"], inference_ms=clips["k2_ms_per_launch"],
+        inference_bound_ms=clips["k2_bound_ms_per_launch"])
+    log(f"cli wall {cli['seconds']:.2f} s; clip forward {clips['clip_seconds'] * 1e3:.1f} ms "
+        f"({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,11 +1,12 @@
 """Synthetic echocardiogram videos and training samples (numpy copy of
-`echoflow.data.synthetic`: `make_beating_video`, `make_training_sample`,
-`make_ed_es_only_sample`).
+`echoflow.data.synthetic`: `make_beating_video`, `write_synthetic_avi`,
+`make_training_sample`, `make_ed_es_only_sample`).
 
 A beating ellipse (the LV) with speckle texture, intensity falloff and a
 known ED/ES ground truth: enough structure for the full pipeline
 (segmentation, peak picking, EF) on machines without the access-gated
-EchoNet-Dynamic data or an AVI decoder.
+EchoNet-Dynamic data; `write_synthetic_avi` needs cv2, imported when it
+is called.
 """
 
 from __future__ import annotations
@@ -63,6 +64,31 @@ def make_beating_video(
             es.append(t)
     video = np.stack([frames, frames, frames]).astype(np.float32)
     return SyntheticBeat(video, masks, np.asarray(ed), np.asarray(es))
+
+
+def write_avi(path: str, frames: np.ndarray, fps: float = 30.0):
+    """Write (T, H, W) grayscale intensities as an MJPG AVI, each frame
+    replicated to three channels (cv2 is imported here, on first use)."""
+    import cv2
+
+    height, width = frames.shape[1:]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), fps, (width, height))
+    if not writer.isOpened():
+        raise RuntimeError(f"could not open AVI writer at {path}")
+    try:
+        for frame in frames.astype(np.uint8):
+            writer.write(np.stack([frame, frame, frame], axis=-1))   # BGR
+    finally:
+        writer.release()
+
+
+def write_synthetic_avi(path: str, num_frames: int = 96, height: int = 112,
+                        width: int = 112, seed: int = 0,
+                        period: float = 40.0) -> SyntheticBeat:
+    """Write a synthetic echo video as an AVI (for CLI-path verification)."""
+    beat = make_beating_video(num_frames, height, width, period=period, seed=seed)
+    write_avi(path, beat.video[0], fps=30.0)
+    return beat
 
 
 def _sample_beat(clip_length, height, width, seed):

@@ -44,9 +44,9 @@ from echoflow_torch.ops.fusion import fuse_frames, softmax_mean_fuse
 from echoflow_torch.ops.normalize import zeroone_normalize
 from echoflow_torch.ops.resize import _linear_resize_matrix_np, resize_linear
 from echoflow_torch.utils.concurrency import get_or_build
+from echoflow_torch.utils.device import upload
 
 CLIP_LEN = 32
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 def _packbits(mask: torch.Tensor) -> torch.Tensor:
@@ -56,7 +56,8 @@ def _packbits(mask: torch.Tensor) -> torch.Tensor:
     t, h, w = mask.shape
     if w % 8 != 0:
         return mask
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=mask.device)
+    # 128, 64, ..., 1 made on the device (no host-to-device copy)
+    weights = (2 ** torch.arange(7, -1, -1, device=mask.device)).to(torch.uint8)
     return (mask.reshape(t, h, w // 8, 8) * weights).sum(dim=-1, dtype=torch.uint8)
 
 
@@ -283,7 +284,7 @@ class VideoSegmenter:
             # never forwarded point at row `total`, an appended zero row.
             clip_inv = np.full(ops["k_num"] * ops["c_max"], total, np.int64)
             clip_inv[vidx] = np.arange(n_valid)
-            dev = [torch.from_numpy(a).to(self.device) for a in
+            dev = [upload(torch.from_numpy(a), self.device) for a in
                    (ops["fwd"], ops["bwd"], ops["gather_idx"], ops["valid"],
                     clip_src, clip_inv)]
             return ops["k_num"], n_valid, dev

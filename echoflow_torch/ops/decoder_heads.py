@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from echoflow_torch.ops.resize import _linear_resize_matrix_np, trilinear_resize
+from echoflow_torch.utils.device import upload
 
 KERNEL_CHANNELS = 64   # the kernel is compiled for 64 -> 64 channels
 MAX_SOURCES = 4
@@ -128,8 +129,8 @@ def _tables(sizes, out_hw, align_corners, device):
     xs = [_axis_table(wr, w_out, align_corners) for _, wr in sizes]
     tile_w, cols = tile_plan([idx for idx, _ in xs], w_out, _column_budget())
     y_tab = np.stack([np.concatenate([idx, wts.view(np.int32)], axis=1) for idx, wts in ys])
-    return (torch.from_numpy(np.ascontiguousarray(y_tab)).to(device),
-            torch.from_numpy(x_plan(xs, w_out, tile_w, cols)).to(device), tile_w, sum(cols))
+    return (upload(torch.from_numpy(np.ascontiguousarray(y_tab)), device),
+            upload(torch.from_numpy(x_plan(xs, w_out, tile_w, cols)), device), tile_w, sum(cols))
 
 
 def _library():

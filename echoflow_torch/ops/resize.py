@@ -6,7 +6,10 @@ align_corners=True; the engine's tail-stretch and softmax re-interpolation
 use align_corners=False). Each 1-D resize is a dense (dst, src) weight
 matrix built on the host exactly as `echoflow` builds it (float32
 coordinates, as torch's area_pixel_compute_source_index computes them), and
-applied as a matrix product on the tensor's device.
+applied as a matrix product on the tensor's device. The device copy of each
+matrix is made once per (src, dst, align_corners, device, dtype), without a
+synchronizing copy: the model's decoder and the engine's forward ask for
+the same few matrices in every step and chunk.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import functools
 
 import numpy as np
 import torch
+
+from echoflow_torch.utils.device import upload
 
 
 @functools.lru_cache(maxsize=512)
@@ -45,11 +50,19 @@ def _linear_resize_matrix_np(src_len: int, dst_len: int, align_corners: bool):
     return mat
 
 
+@functools.lru_cache(maxsize=512)
+def _device_matrix(src_len: int, dst_len: int, align_corners: bool,
+                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    mat = torch.from_numpy(_linear_resize_matrix_np(src_len, dst_len, align_corners))
+    return upload(mat.to(dtype), device)
+
+
 def linear_resize_matrix(src_len: int, dst_len: int, align_corners: bool,
                          device=None, dtype=torch.float32) -> torch.Tensor:
-    """(dst_len, src_len) interpolation matrix for one axis."""
-    mat = _linear_resize_matrix_np(src_len, dst_len, bool(align_corners))
-    return torch.from_numpy(mat).to(device=device, dtype=dtype)
+    """(dst_len, src_len) interpolation matrix for one axis, cached on
+    `device`: callers only read it."""
+    return _device_matrix(int(src_len), int(dst_len), bool(align_corners),
+                          torch.device(device or "cpu"), dtype)
 
 
 def resize_linear(x: torch.Tensor, axis: int, dst_len: int,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from echoflow_torch.ops.warp_kernel import reference_warp_forward, warp_coords
+from echoflow_torch.utils.device import upload
 
 
 def _pixel_coords(grid_x, grid_y, h, w):
@@ -62,11 +63,8 @@ def _base_grids(h: int, w: int, device: torch.device, dtype: torch.dtype):
     copy would wait for all queued device work, and the training chain
     loop asks for them at every step. The CUDA copy goes from pinned memory
     without blocking. Callers only read them."""
-    xs = [torch.from_numpy(np.linspace(-1.0, 1.0, size)).to(dtype) for size in (w, h)]
-    if device.type == "cuda":
-        xs = [x.pin_memory().to(device, non_blocking=True) for x in xs]
-    else:
-        xs = [x.to(device) for x in xs]
+    xs = [upload(torch.from_numpy(np.linspace(-1.0, 1.0, size)).to(dtype), device)
+          for size in (w, h)]
     return xs[0][None, None, :], xs[1][None, :, None]
 
 

@@ -32,6 +32,7 @@ from echoflow_torch.train.losses import (
     clasfv_total_loss_fused,
     ed_es_only_total_loss,
 )
+from echoflow_torch.utils.device import upload
 
 
 @dataclass(frozen=True)
@@ -213,13 +214,6 @@ def make_ed_es_only_eval_step():
     return eval_step
 
 
-def _to_device(x, device):
-    t = torch.as_tensor(np.asarray(x))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def prefetch_to_device(batch_iterator, device, depth: int = 2):
     """Keeps `depth` batches in flight: each host batch is copied from
     pinned memory with `non_blocking`, so the copy of batch i+1 overlaps
@@ -227,7 +221,8 @@ def prefetch_to_device(batch_iterator, device, depth: int = 2):
     device = torch.device(device)
     queue: deque = deque()
     for batch in batch_iterator:
-        queue.append({k: _to_device(v, device) for k, v in batch.items()})
+        queue.append({k: upload(torch.as_tensor(np.asarray(v)), device)
+                      for k, v in batch.items()})
         if len(queue) >= depth:
             yield queue.popleft()
     while queue:

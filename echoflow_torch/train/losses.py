@@ -215,10 +215,12 @@ def single_label_motion_seg_loss(label, label_idx, motion, seg_logits, criterion
     label_idx = label_idx.long()[:, None]                   # (N, 1)
     fwd_flows = motion[:, :2, :-1].movedim(2, 0)
     bwd_flows = motion[:, 2:, 1:].movedim(2, 0).flip(0)
-    ahead = torch.tensor([True, False], device=dev)
+    # Made on the device: a host tensor here would be a synchronizing copy.
+    chain = torch.arange(2, device=dev)
+    ahead = chain == 0                                      # True, False
     steps = torch.arange(t - 1, device=dev)
     fids = torch.stack([steps, t - 1 - steps], dim=1)       # (T-1, 2)
-    frames = fids + torch.tensor([1, -1], device=dev)
+    frames = fids + 1 - 2 * chain                           # offsets 1, -1
     labels = torch.stack([oh, oh], dim=1)                   # (N, 2, 2, H, W)
     terms = []
     for i in range(t - 1):
@@ -244,10 +246,13 @@ def single_label_motion_seg_loss_sample(label, label_idx, motion, seg_logits,
 def edes_supervised_loss(seg_logits, label_ed, label_es, ed_idx, es_idx):
     """Supervised BCE at the labelled ED/ES frames (train_test.py:65-88).
     Returns the averaged loss and the gathered (ed_logits, es_logits),
-    each (N, 2, H, W)."""
+    each (N, 2, H, W). An index past the clip takes its last frame, as
+    echoflow's `lax.dynamic_index_in_dim` clamps it (the dataset's window
+    of a systole longer than the clip gives such an ES index)."""
     rows = torch.arange(seg_logits.shape[0], device=seg_logits.device)
-    ed_logits = seg_logits[rows, :, ed_idx.long()]
-    es_logits = seg_logits[rows, :, es_idx.long()]
+    last = seg_logits.shape[2] - 1
+    ed_logits = seg_logits[rows, :, ed_idx.long().clamp(0, last)]
+    es_logits = seg_logits[rows, :, es_idx.long().clamp(0, last)]
     oh_ed = one_hot_channels(label_ed[:, None], 2)
     oh_es = one_hot_channels(label_es[:, None], 2)
     loss = (bce_with_logits(ed_logits, oh_ed) + bce_with_logits(es_logits, oh_es)) / 2.0

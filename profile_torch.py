@@ -3,11 +3,15 @@
 
     python3 profile_torch.py [--videos 3] [--dtype float32|bfloat16] [--out PATH]
     python3 profile_torch.py --train [--out PATH]
+    python3 profile_torch.py --clips 8 [--out PATH]
 
 Runs the engine of chip_smoke.py (full-width R(2+1)D-18, seeded weights,
 5 shifts, step 1, SIMPLE fusion, 176-frame 112x112 uint8 videos) once to
 warm up, then under torch.profiler, and prints one JSON line: wall time,
-device busy time and idle share, device time by layer and by kernel.
+device busy time and idle share, device time by layer and by kernel, and
+`syncs_per_video`: the calls that waited for the device while one more
+video was dispatched (`segment_video_async`, torch's sync debug mode "warn",
+by line; fetching the mask afterwards waits by design).
 
 With --train it profiles one full-width fused CLAS-FV train step instead
 (batch 4 x 3 x 32 x 112 x 112, fp32, TF32 off, after two warm-up steps),
@@ -18,6 +22,11 @@ autograd's device thread, outside the range opened on the calling thread;
 they count for `train.backward`. One more step, not profiled, runs with
 torch's sync debug mode set to "warn": `syncs_per_step` counts the calls
 in it that waited for the device, by the line that made them.
+
+With --clips CHUNK it profiles `chip_smoke.py` phase 7's workload: one
+`ClipForward` call (fp32, with the motion head) on 16 full-width clips in
+chunks of CHUNK, by layer, and the bilinear rollouts on their motion with
+K2's launches by device time.
 
 A layer is a `record_function` range of the engine (`echoflow_torch.<layer>`,
 see echoflow_torch/infer/pipeline.py): each device kernel or copy counts
@@ -152,12 +161,72 @@ def profile_train(out_path=None):
             json.dump(dict(result, kernels_ms=kernels), f, indent=1)
 
 
+def profile_clips(chunk, out_path=None):
+    """`chip_smoke.py` phase 7's workload under the profiler: one
+    `ClipForward` call (fp32, motion head) on the 16 clips around one ED
+    frame, in chunks of `chunk`, split by layer; then each rollout of
+    `infer/propagate.py` on their motion, with its K2 launches' device times
+    (the largest apart: `deform_images_forback`'s single launch over every
+    frame)."""
+    from chip_smoke import clip_workload, rollout_inputs
+    from echoflow_torch.infer.clips import ClipForward
+    from echoflow_torch.infer.propagate import deform_forback, deform_images_forback
+
+    state, video, ed, starts = clip_workload()
+    clips = np.stack([video[:, s:s + 32] for s in starts])
+    fwd = ClipForward(state, dtype=torch.float32, forward_chunk=chunk)
+    fwd(clips[:chunk])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        probs, motion = fwd(clips)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    layers, kernels = split_device_time(prof, OWN_KERNELS)
+    busy_ms = sum(kernels.values())
+    labels = np.argmax(probs, axis=1).astype(np.uint8)
+    label_ed, label_es, mot, images = rollout_inputs(labels, motion, clips, ed, starts)
+    rollouts = {}
+    for name, fn in (("deform_forback_bilinear",
+                      lambda: deform_forback(label_ed, label_es, mot, mode="bilinear")),
+                     ("deform_images_forback", lambda: deform_images_forback(images, mot))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+        k2 = sorted((e.device_time_total / 1e3 for e in prof.events()
+                     if e.device_type != torch.autograd.DeviceType.CPU
+                     and "warp_forward_kernel" in e.name), reverse=True)
+        device = sum(e.device_time_total / 1e3 for e in prof.events()
+                     if e.device_type != torch.autograd.DeviceType.CPU
+                     and not e.name.startswith(RANGE_PREFIX))
+        rollouts[name] = {"wall_ms": call_ms, "device_busy_ms": device, "k2_launches": len(k2),
+                          "k2_largest_us": k2[0] * 1e3 if k2 else None,
+                          "k2_others_us_mean": sum(k2[1:]) * 1e3 / max(len(k2) - 1, 1)}
+    result = {
+        "card": nvidia_smi_line(), "mode": "clips", "clips": len(starts), "chunk": chunk,
+        "dtype": "float32", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": top_kernels(kernels), "rollouts": rollouts,
+    }
+    print(json.dumps(result))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(dict(result, kernels_ms=kernels), f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--videos", type=int, default=3)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--train", action="store_true",
                     help="profile one full-width fused train step instead")
+    ap.add_argument("--clips", type=int, default=None, metavar="CHUNK",
+                    help="profile chip_smoke.py phase 7's ClipForward (clips a chunk) "
+                         "and rollouts instead")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -165,6 +234,8 @@ def main():
     _build.build_all()
     if args.train:
         return profile_train(args.out)
+    if args.clips:
+        return profile_clips(args.clips, args.out)
     engine = VideoSegmenter(smoke_weights(), dtype=getattr(torch, args.dtype))
     videos = [make_beating_video(num_frames=176, period=38.0 + 6 * i, seed=i + 1)
               .video.astype(np.uint8) for i in range(args.videos)]
@@ -182,12 +253,16 @@ def main():
 
     layers, kernels = split_device_time(prof, OWN_KERNELS)
     busy_ms = sum(kernels.values())
+    (pending, (length, width)), syncs = count_syncs(lambda: engine.segment_video_async(
+        videos[0], num_clips=5, step=1, fuse_method="simple"))
+    assert _unpackbits(pending.numpy(), width)[:length].shape == (176, 112, 112)
     print(json.dumps({
         "card": nvidia_smi_line(), "dtype": args.dtype, "videos": len(videos),
         "frames": 176 * len(videos), "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
         "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": top_kernels(kernels),
+        "syncs_per_video": sum(syncs.values()), "sync_sites": dict(syncs),
     }))
     if args.out:
         with open(args.out, "w") as f:

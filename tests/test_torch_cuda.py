@@ -377,3 +377,140 @@ def test_train_step_on_the_card_matches_the_cpu_port(cuda):
             assert float((gc[k] - g).norm() / g.norm()) <= 1e-2, k
         else:
             assert float(gc[k].norm()) <= 1e-4 * top, k
+
+
+def _no_sync(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any call in it
+    that waits for the device raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_folded_forward_chunk_makes_no_host_sync(cuda):
+    """One forward chunk of the folded model with K1 (2 clips x 32 x 112 x
+    112, with and without the motion head): after a first chunk, which
+    builds the cached resize matrices and K1's tables, nothing in a chunk
+    waits for the device."""
+    from echoflow_torch.models.fast_forward import folded_forward
+    from echoflow_torch.models.fold_bn import fold_state_dict
+    from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet, create_model
+
+    model = R2Plus1DMotionSegNet(folded=True)
+    model.load_state_dict(fold_state_dict(create_model(seed=2).state_dict()))
+    model = model.eval().requires_grad_(False).cuda()
+    video = torch.rand((2, 3, 32, 112, 112), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    for with_motion in (True, False):
+        with torch.no_grad():
+            folded_forward(model, video, with_motion=with_motion)
+            seg, mot = _no_sync(lambda: folded_forward(model, video, with_motion=with_motion))
+        assert seg.shape == (2, 2, 32, 112, 112) and bool(torch.isfinite(seg).all())
+        assert (mot is not None) == with_motion
+
+
+@pytest.mark.cuda
+def test_train_step_makes_no_host_sync(cuda):
+    """A whole fused train step (forward, loss, backward, Adam) at batch 2 x
+    3 x 32 x 112 x 112, after a first step: no call waits for the device."""
+    from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_train_step,
+                                           prefetch_to_device)
+    from train_clasfv_torch import synthetic_batches
+
+    cfg = TrainConfig(batch_size=2)
+    state = create_train_state(0, cfg, device="cuda")
+    batches = list(prefetch_to_device(synthetic_batches(2, 32, 112, 2, seed=0), "cuda"))
+    step = make_train_step(fused_ota=True)
+    state, _ = step(state, batches[0])
+    state, metrics = _no_sync(lambda: step(state, batches[1]))
+    assert np.isfinite(float(metrics["loss"])) and state.step == 2
+
+
+@pytest.mark.cuda
+def test_engine_dispatch_makes_no_host_sync(cuda):
+    """`segment_video_async` of a video whose length the engine has seen
+    enqueues everything without waiting; the fetch waits by design."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
+    from echoflow_torch.models.r2plus1d import create_model
+
+    engine = VideoSegmenter(create_model(seed=1).state_dict(), dtype=torch.float32,
+                            forward_chunk=8)
+    video = make_beating_video(num_frames=48, seed=1).video.astype(np.uint8)
+    want = engine.segment_video(video, num_clips=2, step=1)
+    pending, (length, width) = _no_sync(lambda: engine.segment_video_async(
+        video, num_clips=2, step=1))
+    np.testing.assert_array_equal(_unpackbits(pending.numpy(), width)[:length], want)
+
+
+def _clip_state():
+    from echoflow_torch.models.r2plus1d import create_model
+
+    state = create_model(seed=4).state_dict()
+    state["motion_head.weight"] = state["motion_head.weight"] * 100.0   # motions of ~0.3
+    return state
+
+
+@pytest.mark.cuda
+def test_clip_forward_on_the_card_matches_its_plain_path(cuda):
+    """`ClipForward` (folded, K1 with the motion head) against the module's
+    forward on the card, 5 clips in chunks of 2: K1 launches
+    ceil(5 / 2) = 3 times; probabilities and motion within 1e-4 (fp32 on
+    both sides, folding and 3xTF32 change the rounding); and against the
+    CPU port on the same clips."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.clips import ClipForward
+    from echoflow_torch.ops.normalize import zeroone_normalizer
+
+    state = _clip_state()
+    video = zeroone_normalizer(make_beating_video(num_frames=40, seed=3).video.copy())
+    clips = np.stack([video[:, s:s + 32] for s in range(5)])
+    fwd = ClipForward(state, forward_chunk=2)
+    before = decoder_heads.launches
+    probs, motion = fwd(clips)
+    assert decoder_heads.launches == before + 3
+    assert float(np.abs(motion).max()) > 0.1
+    for other in (ClipForward(state, forward_chunk=2, fold_bn=False),
+                  ClipForward(state, device="cpu", forward_chunk=2)):
+        r_probs, r_motion = other(clips)
+        np.testing.assert_allclose(probs, r_probs, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(motion, r_motion, rtol=0, atol=1e-4)
+    empty = fwd(clips[:0])
+    assert [e.shape for e in empty] == [(0, 2, 32, 112, 112), (0, 4, 32, 112, 112)]
+
+
+@pytest.mark.cuda
+def test_bilinear_rollout_on_the_card_is_bitwise_plain(cuda, monkeypatch):
+    """A bilinear `deform_forback` (2 x 31 launches of K2) and
+    `deform_images_forback` (1 + 31) at 4 clips x 32 frames x 112 x 112,
+    each bitwise the same call with the warp's plain forward."""
+    import torch.nn.functional as F
+
+    from echoflow_torch.infer.propagate import deform_forback, deform_images_forback
+    from echoflow_torch.ops import warp_kernel as wk
+
+    n, t, h, w = 4, 32, 112, 112
+    g = torch.Generator(device="cuda").manual_seed(6)
+    motion = F.interpolate(0.05 * torch.randn((n * t, 4, 7, 7), device="cuda", generator=g),
+                           size=(h, w), mode="bilinear", align_corners=False)
+    motion = motion.reshape(n, t, 4, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    labels = (torch.rand((2, n, h, w), device="cuda", generator=g) > 0.5).float()
+    ed, es = (torch.stack([1 - m, m], dim=1) for m in labels)
+    images = torch.rand((n, 3, t, h, w), device="cuda", generator=g)
+    calls = ((lambda: deform_forback(ed, es, motion, mode="bilinear"), 2 * (t - 1)),
+             (lambda: deform_images_forback(images, motion), 1 + (t - 1)))
+    for fn, launches in calls:
+        before = wk.warp_forward.launches
+        got = fn()
+        torch.cuda.synchronize()
+        assert wk.warp_forward.launches == before + launches
+        with monkeypatch.context() as m:
+            m.setattr(wk, "warp_forward", wk.reference_warp_forward)
+            want = fn()
+        for a, b in zip(got, want):
+            assert a.shape == (t - 1, n, b.shape[2], h, w)
+            assert torch.equal(a, b)

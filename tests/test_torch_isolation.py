@@ -1,9 +1,9 @@
-"""echoflow_torch, chip_smoke.py, profile_torch.py and
-train_clasfv_torch.py import neither jax nor echoflow.
+"""echoflow_torch, chip_smoke.py, profile_torch.py, train_clasfv_torch.py
+and motion_segment_torch.py import neither jax nor echoflow.
 
 A subprocess blocks `jax`, `jaxlib`, `flax` and `echoflow` (the exact name
 and its submodules, not `echoflow_torch`) with a meta-path finder, then
-imports every module of the port and the three scripts."""
+imports every module of the port and the four scripts."""
 
 import pathlib
 import subprocess
@@ -54,7 +54,8 @@ print(len(names))
 
 def test_port_imports_no_jax_and_no_echoflow():
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(REPO / "chip_smoke.py"),
-                          str(REPO / "profile_torch.py"), str(REPO / "train_clasfv_torch.py")],
+                          str(REPO / "profile_torch.py"), str(REPO / "train_clasfv_torch.py"),
+                          str(REPO / "motion_segment_torch.py")],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # every subpackage and module was walked, not just the top package

@@ -386,10 +386,14 @@ def test_train_clasfv_torch_runs_and_resumes(tmp_path):
     state = cli.main(args[:4] + ["2"] + args[5:] + ["--resume", out])
     assert state.step == 4
     assert ck.load_checkpoint(out)["extra"]["val_loss"] <= best["extra"]["val_loss"]
-    for bad in (["--data", "/nonexistent"], ["--compute-dtype", "bf16"],
-                ["--folds", "/nonexistent"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            cli.main(args + bad)
+    with pytest.raises(SystemExit, match="ROADMAP"):   # bf16 training waits for its study
+        cli.main(args + ["--compute-dtype", "bf16"])
+    with pytest.raises(SystemExit, match="--data"):     # neither data source
+        cli.main(args[1:])
+    # --data reads an EchoNet-Dynamic root (tests/test_torch_echonet.py
+    # trains on one); a missing root fails at its FileList.csv.
+    with pytest.raises(FileNotFoundError, match="FileList.csv"):
+        cli.main(args[1:] + ["--data", str(tmp_path / "missing")])
 
     # --init-from: a stock torchvision r2plus1d_18 state dict (the
     # backbone's keys without the prefix) starts the backbone.

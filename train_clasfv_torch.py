@@ -5,13 +5,16 @@ windows, Adam lr 1e-4 with the drop to 1e-5 at epoch 3, batch 4, 10
 epochs, best-validation checkpoint plus the latest one at `<out>.last`.
 The warps of the loss run the port's CUDA kernels on the card.
 
+    python train_clasfv_torch.py --data /path/to/EchoNet-Dynamic \
+        [--folds fold_indexes] [--epoch-subsample 3500] [--device cuda|cpu]
     python train_clasfv_torch.py --synthetic --steps 50 [--device cuda|cpu]
     python train_clasfv_torch.py --synthetic --resume save_models/clasfv_torch.pth
 
-Training on EchoNet-Dynamic (`--data`) waits for the port's data slice,
-and bf16 training (`--compute-dtype bf16`) for its own study; both raise
-(see ROADMAP.md). fp32 is the default and turns TF32 off for cuDNN and
-matmul.
+EchoNet-Dynamic samples are read from the dataset on the host, one at a
+time, as `train_clasfv.py` reads them (`echoflow_torch/data/echonet.py`:
+AVI decoding with cv2, the CSVs with pandas). bf16 training
+(`--compute-dtype bf16`) waits for its own study and raises (see
+ROADMAP.md). fp32 is the default and turns TF32 off for cuDNN and matmul.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def parse_args(argv=None):
     ap.add_argument("--data", type=str, default=None, help="EchoNet-Dynamic root")
     ap.add_argument("--folds", type=str, default=None,
                     help="dir with stanford_{train,valid}_sampled_indices pickles "
-                         "(EchoNet only)")
+                         "(EchoNet only; the repo's fold_indexes/)")
     ap.add_argument("--synthetic", action="store_true",
                     help="train on synthetic beating-heart samples")
     ap.add_argument("--recipe", choices=["clasfv", "ed_es_only"], default="clasfv",
@@ -127,18 +130,102 @@ def synthetic_ed_es_batches(batch_size, clip_length, image_size, steps, seed,
         }
 
 
+def echonet_ed_es_batches(dataset, batch_size, steps=None):
+    """Batches of `EchoNetEDESOnlyDataset` (two clips per sample)."""
+    import numpy as np
+
+    buf = []
+    count = 0
+    for i in range(len(dataset)):
+        try:
+            d = dataset[i]
+        except Exception as exc:   # an unreadable video is skipped, as echoflow does
+            print(f"skipping sample {i}: {exc}")
+            continue
+        buf.append(d)
+        if len(buf) == batch_size:
+            yield {
+                "ed_video": np.stack([b["ed_video_clip"] for b in buf]).astype(np.float32),
+                "es_video": np.stack([b["es_video_clip"] for b in buf]).astype(np.float32),
+                "ed_label": np.stack([b["ed_label"] for b in buf]).astype(np.int32),
+                "es_label": np.stack([b["es_label"] for b in buf]).astype(np.int32),
+                "ed_idx": np.asarray([b["ed_clip_index"] for b in buf], np.int32),
+                "es_idx": np.asarray([b["es_clip_index"] for b in buf], np.int32),
+            }
+            buf = []
+            count += 1
+            if steps is not None and count >= steps:
+                return
+
+
+def echonet_batches(dataset, batch_size, steps=None):
+    """Batches of `EchoNetDynamicDataset`, skipping the samples it cannot
+    give (an unreadable video, ED after ES), as echoflow's trainer does."""
+    import numpy as np
+
+    buf = []
+    count = 0
+    for i in range(len(dataset)):
+        try:
+            video, (_, _, es_ci, ed_ci, *_rest, es_lab, ed_lab) = dataset[i]
+        except Exception as exc:   # skipped and reported, as echoflow does
+            print(f"skipping sample {i}: {exc}")
+            continue
+        buf.append((video, ed_lab, es_lab, ed_ci, es_ci))
+        if len(buf) == batch_size:
+            yield _collate([{"video": b[0], "ed_label": b[1], "es_label": b[2],
+                             "ed_idx": b[3], "es_idx": b[4]} for b in buf])
+            buf = []
+            count += 1
+            if steps is not None and count >= steps:
+                return
+
+
+def echonet_epoch_batches(args, epoch, split):
+    """The epoch's batches of EchoNet-Dynamic `split` as `train_clasfv.py`
+    draws them: the pinned fold's indices with `--folds`, and with
+    `--epoch-subsample` a fresh subsample of the training split every
+    epoch (the ed-or-es-only notebook's 3500 videos), from
+    `RandomState(seed + epoch)`."""
+    import os
+
+    import numpy as np
+
+    from echoflow_torch.data.echonet import (EchoNetDynamicDataset, EchoNetEDESOnlyDataset,
+                                             EchoNetIndex, load_fold_indices)
+
+    subset = None
+    if args.folds:
+        name = ("stanford_train_sampled_indices" if split == "train"
+                else "stanford_valid_sampled_indices")
+        subset = load_fold_indices(os.path.join(args.folds, name))
+    if split == "train" and args.epoch_subsample:
+        rng = np.random.RandomState(args.seed + epoch)
+        # The split's size from the index alone: a dataset would run
+        # get_mean_and_std over its videos first.
+        pool = subset if subset is not None else list(range(len(EchoNetIndex(args.data)
+                                                                 .split(split))))
+        k = min(args.epoch_subsample, len(pool))
+        subset = [pool[j] for j in rng.choice(len(pool), k, replace=False)]
+    ed_es_only = args.recipe == "ed_es_only"
+    cls = EchoNetEDESOnlyDataset if ed_es_only else EchoNetDynamicDataset
+    # image_size is the size a clip is shrunk to when its window is short;
+    # echoflow's trainer leaves the dataset's default (112, 112).
+    ds = cls(args.data, split=split, clip_length=args.clip_length,
+             image_size=(args.image_size, args.image_size), subset_indices=subset,
+             seed=args.seed + epoch)
+    batcher = echonet_ed_es_batches if ed_es_only else echonet_batches
+    return batcher(ds, args.batch_size, args.steps)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.data is not None or args.folds or args.epoch_subsample:
-        raise SystemExit("--data, --folds, --epoch-subsample: the EchoNet-Dynamic loader "
-                         "(AVI decoding with cv2) is not ported yet; it is the data slice of "
-                         "ROADMAP.md Queue 1. Use --synthetic.")
     if args.compute_dtype == "bf16":
         raise SystemExit("--compute-dtype bf16: bf16 training waits for its own study "
                          "(echoflow's rejected it, benchmarks/bf16_train_study.json; see "
                          "ROADMAP.md). Train in fp32.")
-    if not args.synthetic:
-        raise SystemExit("pass --synthetic (EchoNet-Dynamic training waits for the data slice)")
+    if not args.synthetic and args.data is None:
+        raise SystemExit("pass --data <EchoNet root> or --synthetic")
 
     import numpy as np
     import torch
@@ -178,6 +265,8 @@ def main(argv=None):
     device = torch.device(args.device)
 
     def epoch_batches(epoch, split):
+        if not args.synthetic:
+            return echonet_epoch_batches(args, epoch, split)
         n = args.steps or 20
         # Validation draws from a disjoint seed range: a held-out population.
         val = split != "train"
