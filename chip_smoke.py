@@ -57,7 +57,25 @@ Phases (any failure raises and the script exits nonzero):
   8. the CLI: `motion_segment_torch.main` on a written 96-frame AVI (or,
      without cv2, its `run` body on the frames), 5 shifts, `-c all` (less
      the GIF without matplotlib or PIL), the smoke weights as an echoflow
-     `.pkl`: artifact names, masks, finite EFs, wall time.
+     `.pkl`: artifact names, masks, finite EFs, wall time;
+  9. data parallelism: (a) in a one-rank NCCL group, phase 6's full-width
+     fused step (seed-0 state, its first batch) through
+     DistributedDataParallel, global BatchNorm and the coupled smoothness:
+     its loss against the plain step on the same card (1e-5), K2/K3/K4
+     launches held at 31/30/62, and after DDP's bucket rebuild the calls
+     that wait for the device (none) and the collectives of a step; the
+     gradients at phase 6's bars on phase 6's (2, 3, 8, 32, 32) step, with
+     and without DDP; (b) `VideoSegmenter(devices=["cuda:0", "cuda:0"])`, fp32, on
+     phase 4's three videos against phase 4's masks (1e-4 of the pixels),
+     K1's launches held at the chunk plan's; (c) `dryrun_multigpu(1,
+     "nccl")`, echoflow's six multichip cases on a spawned rank;
+ 10. CAMUS: (a) `ota_loss` and `sgs_ots_loss` at batch 4, 10 frames, 4
+     classes, a 1-channel source, 112x112, motion of a few pixels: values
+     (1e-5) and input gradients (5e-3 relative L2) against the same calls
+     on the plain warp, launches held at the counts the code implies; (b)
+     `train_camus_torch.main --synthetic --epochs 2` on the card against
+     the CPU from the same seed, with and without `--acnn` (losses within
+     1e-3 relative), wall seconds.
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -68,8 +86,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 import warnings
 
@@ -116,6 +136,14 @@ LOSS_TOL = 1e-5        # relative loss difference
 GRAD_TOL = 5e-3        # relative L2 error of all gradients together
 LEAF_TOL = 1e-2        # relative L2 error of each leaf's gradient
 ZERO_LEAF = 1e-4       # below this share of the largest leaf's norm: 0 in exact arithmetic
+# Phase 9a at full width, the DP step (global BatchNorm) against the plain
+# step (cuDNN's BatchNorm), both fp32 on the card: two roundings of a step
+# that is itself ~1% from float64 at full width (1.04e-2 at (2, 3, 16, 64,
+# 64) on the CPU). Measured on an H100: all gradients 1.03e-2, worst leaf
+# 1.26e-2, the same in two calls. A BatchNorm gradient through autograd of
+# the fp32 formula was 25x further from float64 at phase 6's shape.
+DP_FULL_GRAD_TOL = 3e-2
+DP_FULL_LEAF_TOL = 4e-2
 # The warp shapes of the training path at batch 4, 32 frames, 112x112.
 WARP_SHAPES = (("label", (8, 4, 112, 112)),   # fused chain step, labels (2N, 4)
                ("video", (8, 3, 112, 112)),   # fused chain step, video (2N, 3)
@@ -590,7 +618,7 @@ def phase_main_path():
     bf16 = auto.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")
     log(f"default dtype {auto.dtype}: mask shape {bf16.shape}, "
         f"mismatch vs fp32 {float((bf16 != masks[0]).mean()):.2e} (information only)")
-    return launches
+    return launches, {"state": state, "videos": videos, "masks": masks}
 
 CLIP_TOL = 1e-4        # probabilities and motion: folded (K1) vs the module's forward, fp32
 SEG_GAIN = 50.0        # smoke_weights' seg head gain
@@ -601,14 +629,16 @@ CLIP_CHUNK = 8
 
 @contextlib.contextmanager
 def plain_warp():
-    """Inside the block the warp's forward runs its plain PyTorch version on
-    CUDA tensors too (the propagation's reference on the card)."""
-    kernel = wk.warp_forward
-    wk.warp_forward = wk.reference_warp_forward
+    """Inside the block the warp (forward, image and coordinate gradients)
+    runs its plain PyTorch versions on CUDA tensors too (the reference of
+    the propagation and of the CAMUS losses on the card)."""
+    kernels = wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad
+    wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad = (
+        wk.reference_warp_forward, wk.reference_warp_image_grad, wk.reference_warp_coord_grad)
     try:
         yield
     finally:
-        wk.warp_forward = kernel
+        wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad = kernels
 
 
 def with_plain_warp(fn):
@@ -845,6 +875,302 @@ def phase_cli():
             "host_packages": have, "pairs": len(pairs), "efs": efs}
 
 
+def _grad_dict(model):
+    return {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+
+
+def _compare_steps(loss_a, grads_a, loss_b, grads_b):
+    """Phase 6's measures of two steps' agreement: loss relative, all
+    gradients and each live leaf by relative L2, the largest zero leaf."""
+    flat_a = torch.cat([g.reshape(-1) for g in grads_a.values()])
+    flat_b = torch.cat([g.reshape(-1) for g in grads_b.values()])
+    top = max(float(g.norm()) for g in grads_b.values())
+    live = {k: g for k, g in grads_b.items() if float(g.norm()) > ZERO_LEAF * top}
+    return dict(loss_rel=abs(loss_a - loss_b) / abs(loss_b),
+                grad_rel=float((flat_a - flat_b).norm() / flat_b.norm()),
+                leaf_rel=max(float((grads_a[k] - g).norm() / g.norm()) for k, g in live.items()),
+                zero_leaf=max((float(g.norm()) / top for k, g in grads_a.items()
+                               if k not in live), default=0.0))
+
+
+def _spread(runs):
+    """The largest relative L2 distance of the gradients of repeated runs
+    of one step from its first run."""
+    return max(_compare_steps(*runs[0], *r)["grad_rel"] for r in runs[1:])
+
+
+def _dp_step_grads(batch):
+    """Phase 6's `_step_grads` (seed-3 state, one fused step) through
+    `data_parallel` in the group that is up."""
+    from echoflow_torch.train.loop import data_parallel
+
+    n, _, t, h, _ = batch["video"].shape
+    state = data_parallel(create_train_state(3, TrainConfig(clip_length=t, image_size=(h, h),
+                                                            batch_size=n), device="cuda"))
+    state, m = make_train_step(fused_ota=True)(
+        state, {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()})
+    return float(m["loss"]), _grad_dict(state.model)
+
+
+def phase_dp_train():
+    """Phase 9a: one-rank NCCL group. The full-width fused step (phase 6's
+    seed-0 state and first batch) through DDP, global BatchNorm and the
+    coupled smoothness: its loss and gradients against the plain step's,
+    its launches, and after DDP's one bucket rebuild (the second step) the
+    calls that wait for the device and the collectives of a step. The
+    full-width gradients are held at bars set from readings
+    (`DP_FULL_GRAD_TOL`); phase 6's (2, 3, 8, 32, 32) step on the card,
+    without and with DDP, at phase 6's bars. Each step is also run twice to
+    read the run-to-run spread (K3's atomics add in a run-dependent order)
+    that the bars must leave room for."""
+    import torch.distributed as dist
+
+    from echoflow_torch.train.loop import data_parallel
+
+    cfg = TrainConfig()
+    host = list(synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 3,
+                                  seed=0))
+    batches = list(prefetch_to_device(iter(host), "cuda"))
+    step = make_train_step(fused_ota=True)
+    plain_runs = []
+    for _ in range(2):
+        plain, m_plain = step(create_train_state(0, cfg, device="cuda"), batches[0])
+        plain_runs.append((float(m_plain["loss"]), _grad_dict(plain.model)))
+        del plain
+        torch.cuda.empty_cache()
+    loss_plain, grads_plain = plain_runs[0]
+    full_plain_spread = _spread(plain_runs)
+    del plain_runs
+    small = next(synthetic_batches(2, 8, 32, 1, seed=11))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                world_size=1, rank=0)
+        try:
+            state = data_parallel(create_train_state(0, cfg, device="cuda"))
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            state, m_dp = step(state, batches[0])
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            counts = _launch_counts()
+            full = _compare_steps(float(m_dp["loss"]), _grad_dict(state.model), loss_plain,
+                                  grads_plain)
+            step(state, batches[1])   # DDP rebuilds its buckets once, here
+            (state, _), syncs = count_syncs(lambda: step(state, batches[2]))
+            torch.cuda.synchronize()
+            collectives, device_events = collections.Counter(), collections.Counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(state, batches[0])
+                torch.cuda.synchronize()
+                profiled_ms = (time.perf_counter() - t0) * 1e3
+            nccl_ms = 0.0
+            for evt in prof.events():
+                if evt.device_type == torch.autograd.DeviceType.CPU:
+                    if evt.name.startswith("nccl:"):
+                        collectives[evt.name] += 1
+                elif "nccl" in evt.name.lower():
+                    device_events[evt.name.split("(")[0][:60]] += 1
+                    nccl_ms += evt.device_time_total / 1e3
+            del state
+            torch.cuda.empty_cache()
+            dp_runs = [_dp_step_grads(small) for _ in range(2)]
+        finally:
+            dist.destroy_process_group()
+    ref_runs = [_step_grads("cuda", small) for _ in range(2)]
+    cmp = _compare_steps(*dp_runs[0], *ref_runs[0])
+    small_spread = {"dp": _spread(dp_runs), "plain": _spread(ref_runs)}
+    del batches
+    torch.cuda.empty_cache()
+    want = (cfg.clip_length - 1, cfg.clip_length - 2, 2 * (cfg.clip_length - 1))
+    log(f"dp (a): one-rank NCCL group, the full-width fused step through DDP: loss "
+        f"{float(m_dp['loss']):.6f} vs the plain step's {loss_plain:.6f} (rel "
+        f"{full['loss_rel']:.2e}, limit {LOSS_TOL:.0e}); launches (K2, K3, K4) {counts}, "
+        f"implied {want}; gradients vs the plain step rel L2 {full['grad_rel']:.2e} (limit "
+        f"{DP_FULL_GRAD_TOL:.0e}), worst leaf {full['leaf_rel']:.2e} (limit "
+        f"{DP_FULL_LEAF_TOL:.0e}), zero leaves {full['zero_leaf']:.2e} (limit {ZERO_LEAF:.0e}); "
+        f"two plain steps apart by {full_plain_spread:.2e} (information); first DP step "
+        f"{first_ms:.1f} ms (host clock, information only)")
+    log(f"  one step after DDP's bucket rebuild: calls that wait for the device "
+        f"{sum(syncs.values())} {dict(syncs)}; collectives (host record) "
+        f"{sum(collectives.values())} {dict(collectives)}; device events named nccl "
+        f"{sum(device_events.values())}, {nccl_ms:.3f} ms; profiled step {profiled_ms:.1f} ms")
+    log(f"  phase 6's (2, 3, 8, 32, 32) step on the card, DDP vs plain: loss rel "
+        f"{cmp['loss_rel']:.2e} (limit {LOSS_TOL:.0e}), gradients rel L2 {cmp['grad_rel']:.2e} "
+        f"(limit {GRAD_TOL:.0e}), worst leaf {cmp['leaf_rel']:.2e} (limit {LEAF_TOL:.0e}), "
+        f"zero leaves {cmp['zero_leaf']:.2e} (limit {ZERO_LEAF:.0e}); two runs of each "
+        f"apart by {small_spread['dp']:.2e} (DDP) and {small_spread['plain']:.2e} (plain) "
+        f"(information)")
+    if not (full["loss_rel"] <= LOSS_TOL and full["grad_rel"] <= DP_FULL_GRAD_TOL
+            and full["leaf_rel"] <= DP_FULL_LEAF_TOL and full["zero_leaf"] <= ZERO_LEAF
+            and cmp["loss_rel"] <= LOSS_TOL
+            and cmp["grad_rel"] <= GRAD_TOL and cmp["leaf_rel"] <= LEAF_TOL
+            and cmp["zero_leaf"] <= ZERO_LEAF):
+        raise AssertionError("the data-parallel step disagrees with the plain step")
+    if counts != want or syncs:
+        raise AssertionError(f"DP step: launches {counts} (implied {want}), "
+                             f"synchronizing calls {dict(syncs)}")
+    names = ("warp_forward", "warp_image_grad", "warp_coord_grad")
+    return {"launches": dict(zip(names, counts)), "full_width": full, "small": cmp,
+            "spread": {"full_width_plain": full_plain_spread, **small_spread},
+            "collectives": sum(collectives.values()), "collectives_by_name": dict(collectives),
+            "nccl_device_events": sum(device_events.values()), "nccl_ms": nccl_ms,
+            "syncs_per_step": sum(syncs.values()), "first_step_ms": first_ms,
+            "profiled_step_ms": profiled_ms}
+
+
+def phase_dp_engine(main_run):
+    """Phase 9b: the engine sharded over two replicas on the card against
+    phase 4's unsharded fp32 masks; K1's launches held at the plan's."""
+    from echoflow_torch.infer.pipeline import _build_host_operands
+
+    engine = VideoSegmenter(main_run["state"], devices=["cuda:0", "cuda:0"],
+                            dtype=torch.float32)
+    videos = main_run["videos"]
+    engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")   # warm-up
+    torch.cuda.synchronize()
+    want = 0
+    for v in videos:
+        length = v.shape[1]
+        t_pad = max(engine.bucket, -(-length // engine.bucket) * engine.bucket)
+        n_fwd = len(_build_host_operands(length, 5, 1, t_pad)["valid_clip_idx"])
+        want += engine._chunk_plan(n_fwd)[0] * len(engine.devices)
+    decoder_heads.launches = 0
+    t0 = time.perf_counter()
+    masks = list(engine.segment_videos(videos, num_clips=5, step=1, fuse_method="simple"))
+    seconds = time.perf_counter() - t0
+    launches = decoder_heads.launches
+    mismatch = max(float((a != b).mean()) for a, b in zip(masks, main_run["masks"]))
+    _, syncs = count_syncs(lambda: engine.segment_video_async(videos[0], num_clips=5, step=1))
+    log(f"dp (b): engine on devices [cuda:0, cuda:0], fp32: K1 launches {launches}, plan "
+        f"{want}; masks vs the unsharded engine: mismatch {mismatch:.2e} (limit "
+        f"{MASK_TOL:.0e}); {len(videos)} videos in {seconds:.3f} s (information only); "
+        f"calls that wait for the device in a dispatch: {sum(syncs.values())} {dict(syncs)}")
+    if launches != want or mismatch > MASK_TOL:
+        raise AssertionError("the sharded engine disagrees with the plan or the masks")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mismatch": mismatch, "seconds": seconds,
+            "syncs_per_video": sum(syncs.values())}
+
+
+def phase_dp_dryrun():
+    """Phase 9c: echoflow's six multichip cases on one spawned NCCL rank."""
+    from echoflow_torch.parallel.dryrun import dryrun_multigpu
+
+    t0 = time.perf_counter()
+    lines = dryrun_multigpu(1, "nccl", timeout=600)
+    seconds = time.perf_counter() - t0
+    log(f"dp (c): dryrun_multigpu(1, nccl): {len(lines)} cases passed in {seconds:.1f} s "
+        f"(a spawned rank, its start included)")
+    if len(lines) != 6:
+        raise AssertionError(f"dryrun: {len(lines)} of 6 cases")
+    return {"cases": len(lines), "seconds": seconds}
+
+
+CAMUS_SHAPE = (4, 10, 112, 112)   # batch, frames, height, width
+CAMUS_VALUE_TOL = 1e-5             # relative, a loss value on the card vs the plain warp
+CAMUS_TRAIN_TOL = 1e-3             # relative, a CAMUS training loss on the card vs the CPU
+
+
+def camus_inputs():
+    """Seeded inputs of phase 10a on the card: a 1-channel source, 4-class
+    logits, their softmax, ED/ES labels and a smooth motion field of a few
+    pixels (a 5x5 field x 0.06 upsampled: about 3 px at 112)."""
+    n, t, h, w = CAMUS_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(10)
+    logits = torch.randn((n, 4, t, h, w), device="cuda", generator=g)
+    coarse = 0.06 * torch.randn((n * t, 4, 5, 5), device="cuda", generator=g)
+    motion = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    return {"video": torch.rand((n, 1, t, h, w), device="cuda", generator=g),
+            "motion": motion.reshape(n, t, 4, h, w).transpose(1, 2).contiguous(),
+            "logits": logits, "softmax": torch.softmax(logits, dim=1),
+            "lab_ed": torch.randint(0, 4, (n, h, w), device="cuda", generator=g),
+            "lab_es": torch.randint(0, 4, (n, h, w), device="cuda", generator=g)}
+
+
+def phase_camus():
+    """Phase 10: the CAMUS losses on the card against the plain warp, then
+    the CAMUS trainer on the card against the CPU."""
+    import train_camus_torch
+    from echoflow_torch.train.camus_losses import ota_loss, sgs_ots_loss
+
+    decoder_heads.launches = 0
+    x = camus_inputs()
+    t = CAMUS_SHAPE[1]
+    losses = {
+        "ota": (lambda m, sm: ota_loss(x["video"], m), (2 * (t - 1), 0, 2 * (t - 1))),
+        "sgs_ots": (lambda m, sm: sum(sgs_ots_loss(x["lab_ed"], x["lab_es"], m, sm)),
+                    (2 * (t - 1), 2 * (t - 2), 2 * (t - 1))),
+    }
+    out = {}
+
+    def run(fn):
+        m = x["motion"].clone().requires_grad_()
+        sm = x["softmax"].clone().requires_grad_()
+        value = fn(m, sm)
+        value.backward()
+        return float(value), m.grad, sm.grad
+
+    for name, (fn, want) in losses.items():
+        _zero_launch_counts()
+        value, g_m, g_sm = run(fn)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        with plain_warp():
+            ref, r_m, r_sm = run(fn)
+        rel = abs(value - ref) / abs(ref)
+        grads = {k: float((a - b).norm() / b.norm())
+                 for k, a, b in (("motion", g_m, r_m), ("softmax", g_sm, r_sm))
+                 if b is not None}   # ota_loss does not read the softmax
+        ms = cuda_ms(lambda: run(fn), reps=5, warmup=1)
+        with plain_warp():
+            plain_ms = cuda_ms(lambda: run(fn), reps=3, warmup=1)
+        out[name] = dict(value=value, plain_value=ref, value_rel=rel, grad_rel=grads,
+                         launches=counts, implied=want, ms=ms, plain_ms=plain_ms)
+        log(f"camus (a) {name} at {CAMUS_SHAPE}: {value:.6f} vs plain {ref:.6f} (rel "
+            f"{rel:.2e}, limit {CAMUS_VALUE_TOL:.0e}); gradients rel L2 {grads} (limit "
+            f"{GRAD_TOL:.0e}); launches (K2, K3, K4) {counts}, implied {want}; value and "
+            f"gradient {ms:.2f} ms, on the plain warp {plain_ms:.2f} ms")
+        if rel > CAMUS_VALUE_TOL or max(grads.values()) > GRAD_TOL or counts != want:
+            raise AssertionError(f"CAMUS {name} on the card disagrees with the plain warp")
+    del x
+    torch.cuda.empty_cache()
+
+    runs = {}
+    _zero_launch_counts()
+    for acnn in (False, True):
+        args = ["--synthetic", "--epochs", "2"] + (["--acnn"] if acnn else [])
+        walls = {}
+        losses_by = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            _, summary, losses_by[device] = train_camus_torch.main(args + ["--device", device])
+            walls[device] = time.perf_counter() - t0
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses_by["cuda"], losses_by["cpu"]))
+        key = "acnn" if acnn else "plain"
+        runs[key] = dict(losses=losses_by, rel=rel, wall_s=walls, dice=summary)
+        log(f"camus (b) train_camus_torch {' '.join(args)}: losses on the card "
+            f"{[round(v, 6) for v in losses_by['cuda']]}, on the CPU "
+            f"{[round(v, 6) for v in losses_by['cpu']]} (rel {rel:.2e}, limit "
+            f"{CAMUS_TRAIN_TOL:.0e}); wall {walls['cuda']:.2f} s on the card, "
+            f"{walls['cpu']:.2f} s on the CPU")
+        if not (np.isfinite(losses_by["cuda"]).all() and rel <= CAMUS_TRAIN_TOL):
+            raise AssertionError(f"train_camus_torch {key}: card and CPU disagree")
+    # The CAMUS trainer's SegNet runs no warp, and no phase-10 path runs K1.
+    train_counts, k1_launches = _launch_counts(), decoder_heads.launches
+    log(f"camus: launches in 10b (K2, K3, K4) {train_counts}, implied (0, 0, 0); K1 in "
+        f"phase 10 {k1_launches}, implied 0")
+    if train_counts != (0, 0, 0) or k1_launches:
+        raise AssertionError("phase 10 launched kernels its code does not imply")
+    names = ("warp_forward", "warp_image_grad", "warp_coord_grad")
+    launches = {n: train_counts[i] + sum(r["launches"][i] for r in out.values())
+                for i, n in enumerate(names)}
+    launches["decoder_heads"] = k1_launches
+    return {"losses": out, "train": runs, "launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -862,11 +1188,15 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     k1 = phase_k1()
-    launches = phase_main_path()
+    launches, main_run = phase_main_path()
     warp = phase_warp()
     train = phase_train()
     clips = phase_clips()
     cli = phase_cli()
+    dp = {"train": phase_dp_train(), "engine": phase_dp_engine(main_run)}
+    del main_run
+    dp["dryrun"] = phase_dp_dryrun()
+    camus = phase_camus()
 
     main_variant = k1[False]
     kernels = [{
@@ -892,6 +1222,9 @@ def main():
         "clip_launches": clips["clip_launches"],
         "clip_ms": clips["k1_ms_per_launch"],
         "clip_bound_ms": clips["k1_bound_ms"],
+        # Phase 9b: the engine sharded over two replicas; phase 10: none implied.
+        "dp_launches": dp["engine"]["launches"],
+        "camus_launches": camus["launches"]["decoder_heads"],
     }]
     replaces = {"warp_forward": "echoflow/ops/pallas/warp_kernel.py:67",
                 "warp_image_grad": "echoflow/ops/pallas/warp_kernel.py:81",
@@ -908,13 +1241,17 @@ def main():
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
             "shapes": by_shape,
+            # Phase 9a: one DP step; phase 10a: both CAMUS losses.
+            "dp_launches": dp["train"]["launches"][name],
+            "camus_launches": camus["launches"][name],
         })
     # Phase 7: K2 in the bilinear rollouts of infer/propagate.py.
     next(k for k in kernels if k["name"] == "warp_forward").update(
         inference_launches=clips["k2_launches"], inference_ms=clips["k2_ms_per_launch"],
         inference_bound_ms=clips["k2_bound_ms_per_launch"])
-    log(f"cli wall {cli['seconds']:.2f} s; clip forward {clips['clip_seconds'] * 1e3:.1f} ms "
-        f"({smi})")
+    log(f"cli wall {cli['seconds']:.2f} s; clip forward {clips['clip_seconds'] * 1e3:.1f} ms; "
+        f"DP step collectives {dp['train']['collectives']}, syncs "
+        f"{dp['train']['syncs_per_step']}; dryrun {dp['dryrun']['seconds']:.1f} s ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

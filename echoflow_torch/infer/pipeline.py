@@ -21,6 +21,15 @@ On the card the decoder tail of every forward is the CUDA kernel of
 `ops/decoder_heads.py`; host operands are cached per video length on the
 device; `segment_videos` dispatches ahead from pinned host memory.
 
+With `devices` the forward is data-parallel (echoflow's `mesh`): each chunk
+of clips is split into one contiguous shard per device, each shard is
+forwarded by that device's replica of the folded model (with the kernel),
+and the probabilities come back to the first device, where re-interp,
+fusion and packing run. Two settled differences from echoflow: its mesh
+engine drops its Pallas decoder (the port keeps the kernel per shard), and
+it shards fusion over frames (the port fuses on the first device; the
+masks are the same either way).
+
 Each layer runs inside a `torch.profiler.record_function` range named
 `echoflow_torch.<layer>` (copies, shift, backbone, projections,
 decoder_tail, model_forward, reinterp, fusion), so `profile_torch.py` can
@@ -29,6 +38,8 @@ group device time by layer.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -43,6 +54,7 @@ from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet
 from echoflow_torch.ops.fusion import fuse_frames, softmax_mean_fuse
 from echoflow_torch.ops.normalize import zeroone_normalize
 from echoflow_torch.ops.resize import _linear_resize_matrix_np, resize_linear
+from echoflow_torch.parallel.mesh import data_devices
 from echoflow_torch.utils.concurrency import get_or_build
 from echoflow_torch.utils.device import upload
 
@@ -191,6 +203,11 @@ class VideoSegmenter:
         or folded: a state dict without BN statistics is taken as folded)
     device : "cuda" (default) or "cpu". A CUDA device that is not there
         raises; the engine never falls back to the CPU by itself.
+    devices : optional list of devices of one type (echoflow's `mesh`): the
+        forward is sharded over them, one folded replica per distinct
+        device, built once here; a device may repeat. The first is the
+        engine's `device`, where the rest of the work runs. `forward_chunk`
+        is then the chunk per device.
     dtype : compute dtype. "auto" resolves to bfloat16 on CUDA and float32
         on the CPU. float32 is the parity path: when `dtype` or
         `backbone_dtype` is float32 on CUDA, the engine turns TF32 off for
@@ -207,6 +224,7 @@ class VideoSegmenter:
 
     variables: dict
     device: object = "cuda"
+    devices: object = None
     dtype: object = "auto"
     backbone_dtype: object = None
     forward_chunk: int = 30
@@ -218,7 +236,14 @@ class VideoSegmenter:
     def __post_init__(self):
         if self.decoder not in ("kernel", "model"):
             raise ValueError(f"decoder must be 'kernel' or 'model'; got {self.decoder!r}")
+        if self.devices is not None:
+            self._devices = data_devices(devices=self.devices)
+            if len({d.type for d in self._devices}) != 1:
+                raise ValueError(f"VideoSegmenter: devices of one type, got {self.devices}")
+            self.device = self._devices[0]
         self.device = torch.device(self.device)
+        if self.devices is None:
+            self._devices = [self.device]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VideoSegmenter: no CUDA device (pass device='cpu' "
                                "to run on the CPU)")
@@ -244,7 +269,10 @@ class VideoSegmenter:
             model.to(self.dtype)
         else:
             model.r2plus1d_model.to(bdt)
-        self._model = model.to(self.device)
+        # One replica per distinct device; the first device's is `_model`.
+        self._replicas = {dev: copy.deepcopy(model).to(dev) for dev in self._devices
+                          if dev != self.device}
+        self._model = self._replicas[self.device] = model.to(self.device)
         self._operand_cache = OrderedDict()
         # segment_videos stages on a worker thread; direct segment_video
         # calls may race it on the operand cache.
@@ -255,20 +283,39 @@ class VideoSegmenter:
         fewest chunks of <= forward_chunk, and the chunk size is the
         balanced ceil(n_fwd / n_chunks), so the padding waste is < n_chunks
         clips (40 valid clips at forward_chunk=30 forward 2x20, not 2x30).
-        Returns (n_chunks, chunk, total)."""
-        per_step = max(1, self.forward_chunk)
+        With `devices`, forward_chunk is per device and the chunk rounds up
+        to a multiple of their number, so each shard is even (echoflow's
+        mesh formula). Returns (n_chunks, chunk, total)."""
+        n_dev = len(self.devices) if self.devices else 1
+        per_step = max(1, self.forward_chunk) * n_dev
         n_chunks = max(1, -(-n_fwd // per_step))
         chunk = -(-n_fwd // n_chunks)
+        chunk = -(-chunk // n_dev) * n_dev
         return n_chunks, chunk, n_chunks * chunk
 
-    def _forward(self, xs: torch.Tensor) -> torch.Tensor:
+    def _forward(self, xs: torch.Tensor, model) -> torch.Tensor:
         if self.decoder == "model":
             with record_function("echoflow_torch.model_forward"):
-                seg, _ = self._model(xs)
+                seg, _ = model(xs)
         else:
-            seg, _ = folded_forward(self._model, xs, dtype=self.dtype, with_motion=False)
+            seg, _ = folded_forward(model, xs, dtype=self.dtype, with_motion=False)
         with record_function("echoflow_torch.reinterp"):
             return torch.softmax(seg, dim=1)
+
+    def _forward_chunk(self, xs: torch.Tensor) -> list:
+        """Softmax probabilities of one chunk, on the first device: one
+        contiguous shard of the clips per device, each copied without
+        waiting and forwarded by that device's replica."""
+        if len(self._devices) == 1:
+            return [self._forward(xs, self._model)]
+        per = xs.shape[0] // len(self._devices)
+        out = []
+        for i, dev in enumerate(self._devices):
+            shard = xs[i * per:(i + 1) * per].to(dev, non_blocking=True)
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                probs = self._forward(shard, self._replicas[dev])
+            out.append(probs.to(self.device, non_blocking=True))
+        return out
 
     def _operands(self, length: int, num_clips: int, step: int, t_pad: int):
         """Per-length device operands, built once (LRU-bounded)."""
@@ -314,7 +361,8 @@ class VideoSegmenter:
             clips = shifted.reshape(k_num, 3, c_max, CLIP_LEN, h, w).movedim(1, 2)
             clips = clips.reshape(k_num * c_max, 3, CLIP_LEN, h, w)[clip_src]
         n_chunks, chunk, _ = self._chunk_plan(n_fwd)
-        probs = [self._forward(clips[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
+        probs = [p for i in range(n_chunks)
+                 for p in self._forward_chunk(clips[i * chunk:(i + 1) * chunk])]
         with record_function("echoflow_torch.reinterp"):
             # Restore the full k-major (K * c_max) clip grid; slots never
             # forwarded read the appended zero row (exact zeros, as the
@@ -377,7 +425,7 @@ class VideoSegmenter:
         with record_function("echoflow_torch.copies"):
             host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(self.device))
         return _Pending(host, done), (length, int(video.shape[3]))
 
     def segment_video(self, video: np.ndarray, num_clips: int = 1, step: int = 1,

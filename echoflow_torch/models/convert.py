@@ -17,7 +17,9 @@ A folded tree (`fold_variables` output: params only, biased convs) converts
 to the folded model's state dict. `variables_from_state_dict` is the
 inverse (state dict -> flax tree), also for trees shaped like `params`
 alone, such as Adam's moments. `load_kinetics_backbone` grafts a stock
-torchvision `r2plus1d_18` state dict onto the backbone.
+torchvision `r2plus1d_18` state dict onto the backbone. `load_flax_params`
+fills the CAMUS harness's small models (SegNet, ShapeAutoencoder) from
+their flax variables.
 """
 
 from __future__ import annotations
@@ -255,3 +257,31 @@ def load_kinetics_backbone(path: str, base_state_dict: Mapping) -> dict:
         if isinstance(payload, dict) and wrapper in payload:
             payload = payload[wrapper]
     return convert_kinetics_backbone(payload, base_state_dict)
+
+
+def load_flax_params(module: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Fill a port module that lists `FLAX_LAYERS`, pairs of (flax module
+    name, torch submodule name), from flax variables (or their "params"):
+    a Conv kernel (kh, kw, in, out) becomes (out, in, kh, kw), a
+    ConvTranspose kernel (kh, kw, in, out) torch's (in, out, kh, kw) flipped
+    in space (`models/flax_layers.py`), a Dense kernel (in, out) its
+    transpose. Every parameter of the module must be listed."""
+    from echoflow_torch.models.flax_layers import SameConvTranspose2d
+
+    params = variables.get("params", variables)
+    state = {}
+    for flax_name, name in module.FLAX_LAYERS:
+        layer, p = module.get_submodule(name), params[flax_name]
+        kernel = np.asarray(p["kernel"], np.float32)
+        if isinstance(layer, SameConvTranspose2d):
+            weight = kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        elif isinstance(layer, torch.nn.Conv2d):
+            weight = kernel.transpose(3, 2, 0, 1)
+        elif isinstance(layer, torch.nn.Linear):
+            weight = kernel.T
+        else:
+            raise TypeError(f"load_flax_params: no rule for {type(layer).__name__}")
+        state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
+        state[f"{name}.bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+    module.load_state_dict(state)
+    return module

@@ -44,8 +44,64 @@ def midplanes(in_ch: int, out_ch: int) -> int:
     return (in_ch * out_ch * 3 * 3 * 3) // (in_ch * 3 * 3 + 3 * out_ch)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the global batch of a process group.
+
+    Forward: each rank's per-channel count, mean and biased variance
+    (`torch.var_mean`), gathered and combined in float64 (Chan's parallel
+    formula), one collective; the output from those statistics. Backward:
+    the fused BatchNorm gradient
+    dx = w / sigma * (dy - sum(dy) / N - x_hat * sum(dy * x_hat) / N), the
+    two sums accumulated in float64 and all-reduced, one collective; the
+    weight and bias get this rank's part (DDP averages the ranks'). The
+    sums in float64 keep the cancellation in dx accurate: the same step
+    through autograd of the fp32 formula was 25x further from float64."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        import torch.distributed as dist
+
+        dims = (0, 2, 3, 4)
+        var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float64,
+                           device=x.device)
+        local = torch.cat([count, mean.double(), var.double()])
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local, group=group)
+        parts = torch.stack(parts)                        # (W, 1 + 2C)
+        c = x.shape[1]
+        counts, means, vars_ = parts[:, :1], parts[:, 1:1 + c], parts[:, 1 + c:]
+        n = counts.sum()
+        g_mean = (counts * means).sum(0) / n
+        g_var = (counts * (vars_ + (means - g_mean) ** 2)).sum(0) / n
+        mean, var = g_mean.to(x.dtype), g_var.to(x.dtype)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.count = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+
+        x, weight, mean, invstd = ctx.saved_tensors
+        dims, shape = (0, 2, 3, 4), (1, -1, 1, 1, 1)
+        x_hat = (x - mean.reshape(shape)) * invstd.reshape(shape)
+        local = torch.cat([dy.sum(dim=dims, dtype=torch.float64),
+                           (dy * x_hat).sum(dim=dims, dtype=torch.float64)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        c = x.shape[1]
+        mean_dy = (sums[:c] / ctx.count).to(x.dtype).reshape(shape)
+        mean_dy_xhat = (sums[c:] / ctx.count).to(x.dtype).reshape(shape)
+        dx = (weight * invstd).reshape(shape) * (dy - mean_dy - x_hat * mean_dy_xhat)
+        return dx, local[c:].to(weight.dtype), local[:c].to(weight.dtype), None, None
+
+
 class BatchNorm3d(nn.BatchNorm3d):
-    """`nn.BatchNorm3d` with flax's running-variance update.
+    """`nn.BatchNorm3d` with flax's running-variance update, and global
+    statistics under a process group.
 
     In training mode it normalizes with the batch mean and the biased batch
     variance, as both frameworks do, and moves the running statistics by
@@ -53,18 +109,40 @@ class BatchNorm3d(nn.BatchNorm3d):
     *biased* batch variance, as flax does. torch's own module updates
     `running_var` with the unbiased variance, n/(n-1) larger, which at the
     deep layers' small n (8 values per channel at layer4 for a
-    (2, 3, 8, 32, 32) batch) is 8/7. Eval mode is torch's."""
+    (2, 3, 8, 32, 32) batch) is 8/7. Eval mode is torch's.
+
+    With `process_group` set (`sync_batchnorm`), training mode takes the
+    mean and biased variance of the whole global batch, as echoflow's
+    BatchNorm does on a `data` mesh, with the gradient of the global
+    statistics (`_GlobalBatchNorm`). It runs at any group size, one
+    included. (`nn.SyncBatchNorm` would update `running_var` with the
+    unbiased variance and skip the reduction at world size 1.)"""
+
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.process_group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                  self.process_group)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            var, mean = torch.var_mean(x.detach(), dim=(0, 2, 3, 4), unbiased=False)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), unbiased=False)
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.detach().to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Set `group` (a torch.distributed process group, or None to go back to
+    per-process statistics) on every `BatchNorm3d` of `model`."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm3d):
+            mod.process_group = group
+    return model
 
 
 def _bn(ch: int, folded: bool) -> nn.Module:
@@ -140,10 +218,15 @@ class R2Plus1DMotionSegNet(nn.Module):
         motion (N, 4, T, H, W) float32, tanh-bounded.
 
     The forward computes in the dtype of the module's parameters (cast the
-    module with `.to(torch.bfloat16)` for the bf16 path). It is also the
+    module with `.to(torch.bfloat16)` for the bf16 path). The outputs are
+    float32, as the reference's and echoflow's; the parity tests of data
+    parallelism set `output_dtype` to float64 on a float64 module, so its
+    whole train step runs in float64. It is also the
     training forward (autograd, train-mode BatchNorm); the decoder-tail
     kernel has no backward and serves inference only, as in echoflow.
     """
+
+    output_dtype = torch.float32
 
     def __init__(self, folded: bool = False):
         super().__init__()
@@ -170,7 +253,7 @@ class R2Plus1DMotionSegNet(nn.Module):
         y = torch.relu(self.comb_batch_norm_2(self.comb_2_layer(y)))
         seg = self.segmentation_head(y)
         motion = torch.tanh(self.motion_head(y))
-        return seg.float(), motion.float()
+        return seg.to(self.output_dtype), motion.to(self.output_dtype)
 
 
 @torch.no_grad()

@@ -12,8 +12,14 @@ do). The model runs its own forward (autograd, train-mode BatchNorm with
 flax's running-statistics update); its warps go through the CUDA kernels
 K2-K4 on the card.
 
-`fit` is `fit_on_mesh` on one device; the mesh and data parallelism wait
-for the port's multi-GPU slice.
+`fit` runs on the model's device. `fit_on_mesh` is echoflow's data
+parallelism over torch.distributed: one process per device, each rank
+taking its contiguous shard of every global batch, under
+`DistributedDataParallel`, with BatchNorm's statistics, the OTA smoothness
+and the logged metrics computed over the global batch, so a step on W
+ranks of B/W samples is the step on one device with the whole batch B
+(what GSPMD gives echoflow on a `data` mesh; the reference's DataParallel
+kept per-replica BatchNorm statistics).
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from echoflow_torch.models.r2plus1d import create_model
+from echoflow_torch.models.r2plus1d import create_model, sync_batchnorm
+from echoflow_torch.parallel.mesh import shard_batch
 from echoflow_torch.train.losses import (
     clasfv_total_loss,
     clasfv_total_loss_fused,
@@ -50,12 +57,18 @@ class TrainState:
     """The model (train mode, on its device), its Adam optimizer, the LR
     schedule, the number of updates taken, and the training generator. No
     step draws from the generator yet; it is checkpointed and restored so a
-    resumed run continues the same stream."""
+    resumed run continues the same stream. Under data parallelism
+    (`data_parallel`) `replica` is the model's forward wrapped in
+    DistributedDataParallel and `group` the process group of the global
+    BatchNorm, the coupled loss term and the metrics; both are None in a
+    single process."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
     generator: torch.Generator | None = field(default=None, repr=False)
+    replica: torch.nn.Module | None = field(default=None, repr=False)
+    group: object = field(default=None, repr=False)
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -112,13 +125,48 @@ def _apply_update(state: TrainState, total):
     state.step += 1
 
 
-def _soft_lv_dice(logits, label, eps: float = 1e-5):
-    """Argmax LV Dice of gathered ED/ES logits vs labels (the running metric
-    the reference prints, train_test.py:96-100)."""
-    pred = torch.argmax(logits, dim=1)
-    a = (pred == 1).float()
+DICE_EPS = 1e-5
+
+
+def _lv_dice_sums(logits, label):
+    """(sum a*b, sum a, sum b) of the argmax LV masks a of gathered ED/ES
+    logits and b of the labels. The argmax LV Dice (the running metric the
+    reference prints, train_test.py:96-100; echoflow's `_soft_lv_dice`) is
+    2 sum(a*b) / (sum a + sum b + 1e-5)."""
+    a = (torch.argmax(logits, dim=1) == 1).float()
     b = (label == 1).float()
-    return 2.0 * torch.sum(a * b) / (torch.sum(a) + torch.sum(b) + eps)
+    return torch.stack([torch.sum(a * b), torch.sum(a), torch.sum(b)])
+
+
+def _step_metrics(total, aux, keys, batch, group=None):
+    """The logged metrics of a step: the loss, the `keys` terms and the
+    ED/ES Dice. Under a process `group` they are the global batch's: the
+    terms are the mean over the ranks (each rank's is a mean over equal
+    shards, or the same global value) and the Dice is the ratio of the
+    all-reduced sums, all in one all-reduce that does not wait for the
+    device."""
+    terms = {"loss": total.detach(), **{k: aux[k].detach() for k in keys}}
+    dice = torch.stack([_lv_dice_sums(aux["ed_logits"].detach(), batch["ed_label"]),
+                        _lv_dice_sums(aux["es_logits"].detach(), batch["es_label"])])
+    if group is not None:
+        import torch.distributed as dist
+
+        values = torch.stack(list(terms.values()))
+        packed = torch.cat([values, dice.reshape(-1).to(values.dtype)])
+        dist.all_reduce(packed, group=group)
+        terms = dict(zip(terms, packed[:len(terms)] / dist.get_world_size(group)))
+        dice = packed[len(terms):].reshape(2, 3).to(dice.dtype)   # counts: exact
+    ratio = 2.0 * dice[:, 0] / (dice[:, 1] + dice[:, 2] + DICE_EPS)
+    return {**terms, "ed_dice": ratio[0], "es_dice": ratio[1]}
+
+
+def _forwards(state: TrainState, *videos):
+    """The model's train-mode forward of each video batch: through the DDP
+    replica under data parallelism (one DDP call a step), else the model."""
+    state.model.train()
+    if state.replica is not None:
+        return state.replica(*videos)
+    return [state.model(v) for v in videos]
 
 
 def make_train_step(fused_ota: bool = True):
@@ -133,18 +181,15 @@ def make_train_step(fused_ota: bool = True):
     loss_fn = clasfv_total_loss_fused if fused_ota else clasfv_total_loss
 
     def train_step(state: TrainState, batch):
-        model = state.model.train()
         with record_function("echoflow_torch.train.forward"):
-            seg, motion = model(batch["video"])
+            (seg, motion), = _forwards(state, batch["video"])
         with record_function("echoflow_torch.train.ota_and_chains"):
             total, aux = loss_fn(batch["video"], seg, motion, batch["ed_label"],
-                                 batch["es_label"], batch["ed_idx"], batch["es_idx"])
+                                 batch["es_label"], batch["ed_idx"], batch["es_idx"],
+                                 group=state.group)
         _apply_update(state, total)
-        metrics = {k: aux[k].detach() for k in ("ota", "sgs", "ots", "edes_bce")}
-        metrics["loss"] = total.detach()
-        metrics["ed_dice"] = _soft_lv_dice(aux["ed_logits"].detach(), batch["ed_label"])
-        metrics["es_dice"] = _soft_lv_dice(aux["es_logits"].detach(), batch["es_label"])
-        return state, metrics
+        return state, _step_metrics(total, aux, ("ota", "sgs", "ots", "edes_bce"), batch,
+                                    state.group)
 
     return train_step
 
@@ -157,27 +202,25 @@ def make_ed_es_only_train_step():
     (N, 3, T, H, W), ed_label/es_label (N, H, W), ed_idx/es_idx (N,)."""
 
     def train_step(state: TrainState, batch):
-        model = state.model.train()
         with record_function("echoflow_torch.train.forward"):
-            ed_seg, ed_motion = model(batch["ed_video"])
-            es_seg, es_motion = model(batch["es_video"])
+            (ed_seg, ed_motion), (es_seg, es_motion) = _forwards(
+                state, batch["ed_video"], batch["es_video"])
         with record_function("echoflow_torch.train.ota_and_chains"):
             total, aux = ed_es_only_total_loss(
                 batch["ed_video"], batch["es_video"], ed_seg, ed_motion, es_seg, es_motion,
-                batch["ed_label"], batch["es_label"], batch["ed_idx"], batch["es_idx"])
+                batch["ed_label"], batch["es_label"], batch["ed_idx"], batch["es_idx"],
+                group=state.group)
         _apply_update(state, total)
-        metrics = {k: aux[k].detach() for k in ("ota", "flow", "edes_bce")}
-        metrics["loss"] = total.detach()
-        metrics["ed_dice"] = _soft_lv_dice(aux["ed_logits"].detach(), batch["ed_label"])
-        metrics["es_dice"] = _soft_lv_dice(aux["es_logits"].detach(), batch["es_label"])
-        return state, metrics
+        return state, _step_metrics(total, aux, ("ota", "flow", "edes_bce"), batch,
+                                    state.group)
 
     return train_step
 
 
 def make_eval_step():
     """eval_step(state, batch) -> metrics: eval-mode forward (running
-    statistics), the reference-schedule loss, no gradient."""
+    statistics), the reference-schedule loss, no gradient; under data
+    parallelism the global batch's (see `_step_metrics`)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -185,12 +228,11 @@ def make_eval_step():
         try:
             seg, motion = model(batch["video"])
             total, aux = clasfv_total_loss(batch["video"], seg, motion, batch["ed_label"],
-                                           batch["es_label"], batch["ed_idx"], batch["es_idx"])
+                                           batch["es_label"], batch["ed_idx"], batch["es_idx"],
+                                           group=state.group)
         finally:
             model.train()
-        return {"loss": total,
-                "ed_dice": _soft_lv_dice(aux["ed_logits"], batch["ed_label"]),
-                "es_dice": _soft_lv_dice(aux["es_logits"], batch["es_label"])}
+        return _step_metrics(total, aux, (), batch, state.group)
 
     return eval_step
 
@@ -204,12 +246,11 @@ def make_ed_es_only_eval_step():
             es_seg, es_motion = model(batch["es_video"])
             total, aux = ed_es_only_total_loss(
                 batch["ed_video"], batch["es_video"], ed_seg, ed_motion, es_seg, es_motion,
-                batch["ed_label"], batch["es_label"], batch["ed_idx"], batch["es_idx"])
+                batch["ed_label"], batch["es_label"], batch["ed_idx"], batch["es_idx"],
+                group=state.group)
         finally:
             model.train()
-        return {"loss": total,
-                "ed_dice": _soft_lv_dice(aux["ed_logits"], batch["ed_label"]),
-                "es_dice": _soft_lv_dice(aux["es_logits"], batch["es_label"])}
+        return _step_metrics(total, aux, (), batch, state.group)
 
     return eval_step
 
@@ -230,24 +271,31 @@ def prefetch_to_device(batch_iterator, device, depth: int = 2):
 
 
 def fit(state: TrainState, train_batches, eval_batches=None, log_every: int = 50,
-        log_fn=print, prefetch_depth: int = 2, step_factory=None, eval_step_factory=None):
+        log_fn=print, metrics_logger=None, prefetch_depth: int = 2, step_factory=None,
+        eval_step_factory=None):
     """Epoch runner over iterables of host batches (dicts of numpy arrays
-    whose leading axis is the batch) on the model's device: `fit_on_mesh`
-    on one device. `step_factory` selects the recipe's train step (default
-    `make_train_step`), `eval_step_factory` its eval step (default
-    `make_eval_step`). Every `log_every` steps the metrics are read, logged
-    and appended to the history; with `eval_batches`, one validation pass
-    runs on the final state and its batch-mean metrics are appended with
-    an ``eval_`` prefix. Returns (state, history)."""
+    whose leading axis is the batch) on the model's device. `step_factory`
+    selects the recipe's train step (default `make_train_step`),
+    `eval_step_factory` its eval step (default `make_eval_step`). Every
+    `log_every` steps the metrics are read, logged (and written to
+    `metrics_logger`, a `utils.metrics_log.MetricsLogger`, at the update
+    count) and appended to the history; with `eval_batches`, one validation
+    pass runs on the final state and its batch-mean metrics are appended
+    with an ``eval_`` prefix. Returns (state, history)."""
     device = next(state.model.parameters()).device
     train_step = (step_factory or make_train_step)()
+
+    def record(m, line):
+        history.append(m)
+        if metrics_logger is not None:
+            metrics_logger.log(state.step, m)
+        log_fn(line + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+
     history = []
     for i, batch in enumerate(prefetch_to_device(train_batches, device, prefetch_depth), 1):
         state, metrics = train_step(state, batch)
         if i % log_every == 0:
-            m = {k: float(v) for k, v in metrics.items()}
-            history.append(m)
-            log_fn(f"step {i}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+            record({k: float(v) for k, v in metrics.items()}, f"step {i}: ")
 
     if eval_batches is not None:
         eval_step = (eval_step_factory or make_eval_step)()
@@ -258,7 +306,83 @@ def fit(state: TrainState, train_batches, eval_batches=None, log_every: int = 50
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
         if count:
-            m = {f"eval_{k}": v / count for k, v in sums.items()}
-            history.append(m)
-            log_fn("eval: " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+            record({f"eval_{k}": v / count for k, v in sums.items()}, "eval: ")
     return state, history
+
+
+class _Replicas(torch.nn.Module):
+    """The model's forward of one or more video batches in one call, so that
+    DistributedDataParallel sees one forward a step in both recipes (the
+    ed-or-es-only recipe runs the model twice)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *videos):
+        return [self.model(v) for v in videos]
+
+
+def data_parallel(state: TrainState, group=None) -> TrainState:
+    """This rank's state for data-parallel training over `group` (default:
+    the whole default process group, which must be up: `init_distributed`).
+    Every rank of the default group calls it, in the same order.
+
+    - The forward is wrapped in `DistributedDataParallel` (rank 0's
+      parameters and buffers are broadcast once; gradients are averaged).
+    - BatchNorm, the coupled loss term and the metrics reduce over a second
+      communicator of the same ranks, so their collectives never interleave
+      with DDP's gradient buckets.
+    - The parameters the forward never reads (the Kinetics fc) are left out
+      of DDP (`requires_grad` off): DDP would wait for their gradients.
+      `_apply_update` gives them a zero gradient on every rank, as in one
+      process, so Adam's state stays identical across ranks.
+    - BatchNorm's running statistics are the global batch's on every rank,
+      so DDP does not broadcast buffers."""
+    if state.replica is not None:
+        return state
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    if not dist.is_initialized():
+        raise RuntimeError("data_parallel: no process group (parallel.init_distributed)")
+    group = group or dist.group.WORLD
+    reduce_group = dist.new_group(dist.get_process_group_ranks(group))
+    model = state.model
+    model.r2plus1d_model.fc.requires_grad_(False)
+    sync_batchnorm(model, reduce_group)
+    device = next(model.parameters()).device
+    state.replica = DistributedDataParallel(
+        _Replicas(model), device_ids=[device] if device.type == "cuda" else None,
+        process_group=group, broadcast_buffers=False)
+    state.group = reduce_group
+    return state
+
+
+def _sharded(batches, rank: int, world: int):
+    return (shard_batch(b, rank, world) for b in batches)
+
+
+def fit_on_mesh(state: TrainState, train_batches, eval_batches=None, group=None,
+                log_every: int = 50, log_fn=print, metrics_logger=None,
+                prefetch_depth: int = 2, step_factory=None, eval_step_factory=None):
+    """`fit` data-parallel over `group` (default: the default process
+    group), one process per device (echoflow's `fit_on_mesh` over a `data`
+    mesh). `train_batches` and `eval_batches` yield the *global* host
+    batches on every rank; each rank prefetches its contiguous shard
+    (`parallel.shard_batch`; the batch must divide by the world size). A
+    step on W ranks is the single-device step on the whole batch (see the
+    module docstring); the logged metrics and the eval pass are the global
+    batch's. Rank 0 alone calls `log_fn` and `metrics_logger`; every rank
+    returns the same history. Returns (state, history)."""
+    import torch.distributed as dist
+
+    state = data_parallel(state, group)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    lead = rank == 0
+    return fit(state, _sharded(train_batches, rank, world),
+               None if eval_batches is None else _sharded(eval_batches, rank, world),
+               log_every=log_every, log_fn=log_fn if lead else (lambda line: None),
+               metrics_logger=metrics_logger if lead else None,
+               prefetch_depth=prefetch_depth, step_factory=step_factory,
+               eval_step_factory=eval_step_factory)

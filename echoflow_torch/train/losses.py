@@ -24,6 +24,12 @@ host.
 
 Shapes: video (N, C, T, H, W), motion (N, 4, T, H, W), seg_logits
 (N, 2, T, H, W), labels (N, H, W) int, ed_idx/es_idx (N,) int tensors.
+
+Data parallelism (`train/loop.fit_on_mesh`): every term but OTA's
+smoothness is a mean of per-sample values with equal weights, so on equal
+shards the mean of the ranks' losses is the global batch's. The smoothness
+sums over the whole batch inside a square root; the losses take the process
+`group` for it (`_huber_flow_smoothness`).
 """
 
 from __future__ import annotations
@@ -74,21 +80,37 @@ def huber_smoothness(flow):
     return torch.sqrt(0.01 + err / n)
 
 
-def _huber_flow_smoothness(flow_pairs):
+def _huber_flow_smoothness(flow_pairs, group=None):
     """Summed per-pair huber smoothness of (N, T-1, 2, H, W) flow pairs:
     sum_t sqrt(0.01 + (sum dx^2 / H + sum dy^2 / W) / N), the reduction
-    shared by `deformation_motion_loss` and `_ota_smoothness`."""
+    shared by `deformation_motion_loss` and `_ota_smoothness`.
+
+    The sums run over the whole batch, so the term couples the samples:
+    under a process `group` (equal shards on every rank) the per-pair sums
+    are all-reduced with autograd before the square root, N is the global
+    batch, and every rank computes the global value. The reduction's
+    backward sums the ranks' gradients, which DDP's average of the ranks'
+    gradients divides back out."""
     n, _, _, h, w = flow_pairs.shape
     dx = flow_pairs[..., :, 1:] - flow_pairs[..., :, :-1]
     dy = flow_pairs[..., 1:, :] - flow_pairs[..., :-1, :]
     err = (torch.sum(dx * dx, dim=(0, 2, 3, 4)) / h
            + torch.sum(dy * dy, dim=(0, 2, 3, 4)) / w)
+    if group is not None:
+        from torch.distributed import get_world_size
+
+        from echoflow_torch.parallel.mesh import all_reduce_sum
+
+        err = all_reduce_sum(err, group)
+        n = n * get_world_size(group)
     return torch.sum(torch.sqrt(0.01 + err / n))
 
 
-def deformation_motion_loss(video, motion):
+def deformation_motion_loss(video, motion, group=None):
     """OTA loss. video (N, C, T, H, W), motion (N, 4, T, H, W) -> scalar.
-    Both warps of all (T-1) frame pairs run as one (N*(T-1))-batch warp."""
+    Both warps of all (T-1) frame pairs run as one (N*(T-1))-batch warp.
+    Under a process `group` the smoothness is the global batch's (see
+    `_huber_flow_smoothness`); the MSE is this rank's mean."""
     n, c, t, h, w = video.shape
     src_fwd = video[:, :, :-1].movedim(2, 1).reshape(n * (t - 1), c, h, w)
     src_bwd = video[:, :, 1:].movedim(2, 1).reshape(n * (t - 1), c, h, w)
@@ -100,8 +122,8 @@ def deformation_motion_loss(video, motion):
 
     # Sum over pairs of per-pair means == (T-1) * overall mean.
     mse = (t - 1) * (torch.mean((pred_fwd - src_bwd) ** 2) + torch.mean((pred_bwd - src_fwd) ** 2))
-    smooth = (_huber_flow_smoothness(flow_fwd.reshape(n, t - 1, 2, h, w))
-              + _huber_flow_smoothness(flow_bwd.reshape(n, t - 1, 2, h, w)))
+    smooth = (_huber_flow_smoothness(flow_fwd.reshape(n, t - 1, 2, h, w), group)
+              + _huber_flow_smoothness(flow_bwd.reshape(n, t - 1, 2, h, w), group))
     return (0.005 * smooth + mse) / 2.0 / (t - 1)
 
 
@@ -260,15 +282,17 @@ def edes_supervised_loss(seg_logits, label_ed, label_es, ed_idx, es_idx):
 
 
 def ed_es_only_total_loss(ed_video, es_video, ed_seg, ed_motion, es_seg, es_motion,
-                          label_ed, label_es, ed_idx, es_idx):
+                          label_ed, label_es, ed_idx, es_idx, group=None):
     """The ed-or-es-only objective (reference notebook cell 7 `train`):
 
       total = [OTA(ed clip) + OTA(es clip)]
             + sum_i[single(ed_i) + single(es_i)] / N / 2
             + [BCE(ed logits @ ed_idx) + BCE(es logits @ es_idx)] / 2
 
+    Under a process `group` the OTA smoothness is the global batch's.
     Returns (total, aux dict)."""
-    ota = deformation_motion_loss(ed_video, ed_motion) + deformation_motion_loss(es_video, es_motion)
+    ota = (deformation_motion_loss(ed_video, ed_motion, group)
+           + deformation_motion_loss(es_video, es_motion, group))
     flow = (torch.sum(single_label_motion_seg_loss(label_ed, ed_idx, ed_motion, ed_seg))
             + torch.sum(single_label_motion_seg_loss(label_es, es_idx, es_motion, es_seg)))
     flow = flow / ed_video.shape[0] / 2.0
@@ -280,12 +304,12 @@ def ed_es_only_total_loss(ed_video, es_video, ed_seg, ed_motion, es_seg, es_moti
                    "ed_logits": ed_logits, "es_logits": es_logits}
 
 
-def _ota_smoothness(motion):
+def _ota_smoothness(motion, group=None):
     """The huber smoothness half of OTA (un-scaled), by the same reduction
     as `deformation_motion_loss`."""
     flow_fwd = motion[:, :2, :-1].movedim(2, 1)   # (N, T-1, 2, H, W)
     flow_bwd = motion[:, 2:, 1:].movedim(2, 1)
-    return _huber_flow_smoothness(flow_fwd) + _huber_flow_smoothness(flow_bwd)
+    return _huber_flow_smoothness(flow_fwd, group) + _huber_flow_smoothness(flow_bwd, group)
 
 
 def _fused_chain_ota(video, label_ed, label_es, ed_idx, es_idx, motion, seg_logits,
@@ -330,9 +354,11 @@ def _fused_chain_ota(video, label_ed, label_es, ed_idx, es_idx, motion, seg_logi
     return sgs, ots, torch.stack(mse_steps).sum(dim=0)
 
 
-def clasfv_total_loss_fused(video, seg_logits, motion, label_ed, label_es, ed_idx, es_idx):
+def clasfv_total_loss_fused(video, seg_logits, motion, label_ed, label_es, ed_idx, es_idx,
+                            group=None):
     """`clasfv_total_loss` with OTA's warps fused into the chain loop (see
-    `_fused_chain_ota`): the same math up to fp summation order. Returns
+    `_fused_chain_ota`): the same math up to fp summation order. Under a
+    process `group` the OTA smoothness is the global batch's. Returns
     (total, aux dict)."""
     n, c, t, h, w = video.shape
     sgs, ots, mse_sums = _fused_chain_ota(video, label_ed, label_es, ed_idx, es_idx,
@@ -340,7 +366,7 @@ def clasfv_total_loss_fused(video, seg_logits, motion, label_ed, label_es, ed_id
     sgs, ots = torch.mean(sgs), torch.mean(ots)
     # (t-1) * (mean_fwd + mean_bwd) of deformation_motion_loss == sum_sq / (N C H W).
     mse = torch.sum(mse_sums) / (n * c * h * w)
-    ota = (0.005 * _ota_smoothness(motion) + mse) / 2.0 / (t - 1)
+    ota = (0.005 * _ota_smoothness(motion, group) + mse) / 2.0 / (t - 1)
     edes, (ed_logits, es_logits) = edes_supervised_loss(seg_logits, label_ed, label_es,
                                                         ed_idx, es_idx)
     total = ota + sgs + ots + edes
@@ -348,10 +374,12 @@ def clasfv_total_loss_fused(video, seg_logits, motion, label_ed, label_es, ed_id
                    "ed_logits": ed_logits, "es_logits": es_logits}
 
 
-def clasfv_total_loss(video, seg_logits, motion, label_ed, label_es, ed_idx, es_idx):
+def clasfv_total_loss(video, seg_logits, motion, label_ed, label_es, ed_idx, es_idx,
+                      group=None):
     """The full CLAS-FV objective (train_test.py:33-88), in the reference's
-    compute schedule. Returns (total, aux dict)."""
-    ota = deformation_motion_loss(video, motion)
+    compute schedule. Under a process `group` the OTA smoothness is the
+    global batch's. Returns (total, aux dict)."""
+    ota = deformation_motion_loss(video, motion, group)
     sgs, ots = motion_seg_loss(label_ed, label_es, ed_idx, es_idx, motion, seg_logits)
     edes, (ed_logits, es_logits) = edes_supervised_loss(seg_logits, label_ed, label_es,
                                                         ed_idx, es_idx)

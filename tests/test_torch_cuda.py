@@ -514,3 +514,97 @@ def test_bilinear_rollout_on_the_card_is_bitwise_plain(cuda, monkeypatch):
         for a, b in zip(got, want):
             assert a.shape == (t - 1, n, b.shape[2], h, w)
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_engine_dispatch_makes_no_host_sync(cuda):
+    """`VideoSegmenter(devices=["cuda:0", "cuda:0"])`: two replicas on one
+    card, each chunk split in two shards, each forwarded with K1. A video
+    whose length the engine has seen is dispatched without waiting; its
+    masks equal the unsharded engine's but for argmax near-ties of two
+    batch sizes (1e-4 of the pixels), and K1 launches once a shard."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
+    from echoflow_torch.models.r2plus1d import create_model
+
+    state = create_model(seed=1).state_dict()
+    sharded = VideoSegmenter(state, devices=["cuda:0", "cuda:0"], dtype=torch.float32,
+                             forward_chunk=4)
+    single = VideoSegmenter(state, dtype=torch.float32, forward_chunk=8)
+    assert len(sharded._replicas) == 1
+    video = make_beating_video(num_frames=80, seed=1).video.astype(np.uint8)
+    want = single.segment_video(video, num_clips=3, step=1)
+    sharded.segment_video(video, num_clips=3, step=1)
+    before = decoder_heads.launches
+    pending, (length, width) = _no_sync(lambda: sharded.segment_video_async(
+        video, num_clips=3, step=1))
+    got = _unpackbits(pending.numpy(), width)[:length]
+    assert decoder_heads.launches - before == 2   # one chunk of 6 clips, two shards
+    assert float((got != want).mean()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_one_rank_dp_step_makes_no_host_sync(cuda, tmp_path):
+    """A data-parallel fused step (DDP, global BatchNorm, the coupled
+    smoothness, the metrics' all-reduce) in a one-rank NCCL group: its loss
+    equals the plain step's, and after the second step, where DDP rebuilds
+    its gradient buckets once (a synchronizing call of DDP's own), no call
+    in a step waits for the device."""
+    import torch.distributed as dist
+
+    from echoflow_torch.train.loop import (TrainConfig, create_train_state, data_parallel,
+                                           make_train_step, prefetch_to_device)
+    from train_clasfv_torch import synthetic_batches
+
+    cfg = TrainConfig(batch_size=2)
+    batches = list(prefetch_to_device(synthetic_batches(2, 32, 112, 2, seed=0), "cuda"))
+    step = make_train_step(fused_ota=True)
+    _, plain = step(create_train_state(0, cfg, device="cuda"), batches[0])
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        state = data_parallel(create_train_state(0, cfg, device="cuda"))
+        state, first = step(state, batches[0])
+        state, _ = step(state, batches[1])
+        state, metrics = _no_sync(lambda: step(state, batches[0]))
+        assert np.isfinite(float(metrics["loss"])) and state.step == 3
+        assert abs(float(first["loss"]) - float(plain["loss"])) <= 1e-5 * abs(float(plain["loss"]))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_camus_losses_on_the_card_match_the_plain_warp(cuda, monkeypatch):
+    """`ota_loss` and `sgs_ots_loss` (2 x 1 x 10 x 64 x 64, 4 classes, a
+    smooth motion of a few pixels) through K2-K4 against the same calls on
+    the plain warp: values within 1e-5, the motion's gradient within 5e-3
+    relative L2 (K3's atomics add in a run-dependent order)."""
+    import torch.nn.functional as F
+
+    from echoflow_torch.ops import warp_kernel as wk
+    from echoflow_torch.train.camus_losses import ota_loss, sgs_ots_loss
+
+    n, t, h, w = 2, 10, 64, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    video = torch.rand((n, 1, t, h, w), device="cuda", generator=g)
+    motion = F.interpolate(0.06 * torch.randn((n * t, 4, 5, 5), device="cuda", generator=g),
+                           size=(h, w), mode="bilinear", align_corners=False)
+    motion = motion.reshape(n, t, 4, h, w).transpose(1, 2).contiguous()
+    softmax = torch.softmax(torch.randn((n, 4, t, h, w), device="cuda", generator=g), dim=1)
+    lab = torch.randint(0, 4, (2, n, h, w), device="cuda", generator=g)
+
+    def run(fn):
+        m = motion.clone().requires_grad_()
+        value = fn(m)
+        value.backward()
+        return float(value), m.grad
+
+    for fn in (lambda m: ota_loss(video, m), lambda m: sum(sgs_ots_loss(lab[0], lab[1], m,
+                                                                        softmax))):
+        value, grad = run(fn)
+        with monkeypatch.context() as mp:
+            for name in ("warp_forward", "warp_image_grad", "warp_coord_grad"):
+                mp.setattr(wk, name, getattr(wk, "reference_" + name))
+            ref, ref_grad = run(fn)
+        assert abs(value - ref) <= 1e-5 * abs(ref)
+        assert float((grad - ref_grad).norm() / ref_grad.norm()) <= 5e-3

@@ -1,9 +1,10 @@
-"""echoflow_torch, chip_smoke.py, profile_torch.py, train_clasfv_torch.py
-and motion_segment_torch.py import neither jax nor echoflow.
+"""echoflow_torch, chip_smoke.py, profile_torch.py, train_clasfv_torch.py,
+train_camus_torch.py and motion_segment_torch.py import neither jax nor
+echoflow.
 
 A subprocess blocks `jax`, `jaxlib`, `flax` and `echoflow` (the exact name
 and its submodules, not `echoflow_torch`) with a meta-path finder, then
-imports every module of the port and the four scripts."""
+imports every module of the port and the five scripts."""
 
 import pathlib
 import subprocess
@@ -55,7 +56,8 @@ print(len(names))
 def test_port_imports_no_jax_and_no_echoflow():
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(REPO / "chip_smoke.py"),
                           str(REPO / "profile_torch.py"), str(REPO / "train_clasfv_torch.py"),
-                          str(REPO / "motion_segment_torch.py")],
+                          str(REPO / "motion_segment_torch.py"),
+                          str(REPO / "train_camus_torch.py")],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # every subpackage and module was walked, not just the top package

@@ -9,6 +9,12 @@ The warps of the loss run the port's CUDA kernels on the card.
         [--folds fold_indexes] [--epoch-subsample 3500] [--device cuda|cpu]
     python train_clasfv_torch.py --synthetic --steps 50 [--device cuda|cpu]
     python train_clasfv_torch.py --synthetic --resume save_models/clasfv_torch.pth
+    torchrun --nproc_per_node 8 train_clasfv_torch.py --data ... --batch-size 8
+
+Under `torchrun` the run is data-parallel (`train/loop.fit_on_mesh`): rank
+r trains on `cuda:LOCAL_RANK`, `--batch-size` stays the global batch (each
+rank reads its contiguous shard of every batch, as on echoflow's mesh), and
+rank 0 alone prints and writes checkpoints. A plain run is one process.
 
 EchoNet-Dynamic samples are read from the dataset on the host, one at a
 time, as `train_clasfv.py` reads them (`echoflow_torch/data/echonet.py`:
@@ -20,6 +26,7 @@ ROADMAP.md). fp32 is the default and turns TF32 off for cuDNN and matmul.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 _SAMPLE_CACHE: dict = {}
@@ -229,18 +236,34 @@ def main(argv=None):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
+    from echoflow_torch.parallel import init_distributed
     from echoflow_torch.train.checkpoint import restore_train_state, save_checkpoint
     from echoflow_torch.train.loop import (
-        TrainConfig, create_train_state, fit, make_ed_es_only_eval_step,
-        make_ed_es_only_train_step, make_eval_step, prefetch_to_device)
+        TrainConfig, _sharded, create_train_state, fit, fit_on_mesh,
+        make_ed_es_only_eval_step, make_ed_es_only_train_step, make_eval_step,
+        prefetch_to_device)
+
+    # Under torchrun, one rank a card; a plain run stays one process.
+    owned = not dist.is_initialized()
+    distributed = init_distributed()
+    rank, world = (dist.get_rank(), dist.get_world_size()) if distributed else (0, 1)
+    if distributed and args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} is the global batch: it must "
+                         f"divide by the {world} ranks")
+    device = torch.device(args.device)
+    if distributed and device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(device)
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     steps_per_epoch = args.steps or (7332 // args.batch_size)
     cfg = TrainConfig(lr=args.lr, lr_drop_step=args.lr_drop_epoch * steps_per_epoch,
                       lr_after_drop=args.lr_after_drop, clip_length=args.clip_length,
                       image_size=(args.image_size, args.image_size),
                       batch_size=args.batch_size)
-    state = create_train_state(args.seed, cfg, device=args.device)
+    state = create_train_state(args.seed, cfg, device=device)
     start_epoch, best_val = 0, float("inf")
     if args.init_from:
         if args.resume:
@@ -250,19 +273,18 @@ def main(argv=None):
 
         state.model.load_state_dict(load_kinetics_backbone(args.init_from,
                                                            state.model.state_dict()))
-        print(f"initialized backbone from Kinetics checkpoint {args.init_from}")
+        say(f"initialized backbone from Kinetics checkpoint {args.init_from}")
     if args.resume:
         state, extra = restore_train_state(args.resume, state)
         start_epoch = int(extra.get("epoch", -1)) + 1
         # The best-val watermark too, so a worse epoch after the resume
         # cannot overwrite a better best checkpoint.
         best_val = float(extra.get("val_loss", float("inf")))
-        print(f"resumed from {args.resume} at step {state.step}, starting epoch {start_epoch}")
+        say(f"resumed from {args.resume} at step {state.step}, starting epoch {start_epoch}")
 
     ed_es_only = args.recipe == "ed_es_only"
     eval_step = (make_ed_es_only_eval_step if ed_es_only else make_eval_step)()
     step_factory = make_ed_es_only_train_step if ed_es_only else None
-    device = torch.device(args.device)
 
     def epoch_batches(epoch, split):
         if not args.synthetic:
@@ -283,26 +305,38 @@ def main(argv=None):
 
     for epoch in range(start_epoch, args.epochs):
         tic = time.time()
-        state, _ = fit(state, epoch_batches(epoch, "train"), log_every=args.log_every,
-                       step_factory=step_factory)
+        if distributed:
+            state, _ = fit_on_mesh(state, epoch_batches(epoch, "train"),
+                                   log_every=args.log_every, step_factory=step_factory)
+            val_batches = _sharded(epoch_batches(epoch, "val"), rank, world)
+        else:
+            state, _ = fit(state, epoch_batches(epoch, "train"), log_every=args.log_every,
+                           step_factory=step_factory)
+            val_batches = epoch_batches(epoch, "val")
         val_losses, ed_d, es_d = [], [], []
-        for batch in prefetch_to_device(epoch_batches(epoch, "val"), device):
+        for batch in prefetch_to_device(val_batches, device):
             m = eval_step(state, batch)
             val_losses.append(float(m["loss"]))
             ed_d.append(float(m["ed_dice"]))
             es_d.append(float(m["es_dice"]))
         val = float(np.mean(val_losses)) if val_losses else float("nan")
-        print(f"epoch {epoch}: val loss {val:.4f} ED dice {np.mean(ed_d or [0]):.3f} "
-              f"ES dice {np.mean(es_d or [0]):.3f} ({time.time() - tic:.0f}s)")
+        say(f"epoch {epoch}: val loss {val:.4f} ED dice {np.mean(ed_d or [0]):.3f} "
+            f"ES dice {np.mean(es_d or [0]):.3f} ({time.time() - tic:.0f}s)")
         extra = {"epoch": epoch, "val_loss": val, "seed": args.seed}
+        # The validation metrics are the global batch's, so every rank takes
+        # the same branch; rank 0 writes (the model, without DDP's prefix).
         # A NaN validation is a diverged run, never a better one.
         if should_save_best(val, best_val):
             best_val = val
-            save_checkpoint(args.out, state, extra=extra)
-            print(f"saved checkpoint -> {args.out}")
+            if rank == 0:
+                save_checkpoint(args.out, state, extra=extra)
+            say(f"saved checkpoint -> {args.out}")
         # The latest state always, so a run whose validation never wins
         # keeps its weights.
-        save_checkpoint(args.out + ".last", state, extra=extra)
+        if rank == 0:
+            save_checkpoint(args.out + ".last", state, extra=extra)
+    if distributed and owned:
+        dist.destroy_process_group()
     return state
 
 
