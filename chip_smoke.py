@@ -75,7 +75,23 @@ Phases (any failure raises and the script exits nonzero):
      on the plain warp, launches held at the counts the code implies; (b)
      `train_camus_torch.main --synthetic --epochs 2` on the card against
      the CPU from the same seed, with and without `--acnn` (losses within
-     1e-3 relative), wall seconds.
+     1e-3 relative), wall seconds;
+ 11. precision and remat: (a) 3 full-width fused steps (phase 6's batches,
+     seed-0 state) of each of fp32, fp32 with remat, bf16
+     (`TrainConfig.compute_dtype`) and bf16 with remat: K2/K3/K4 launches
+     zeroed just before and held at 31/30/62 a step, the median unprofiled
+     step time, the peak allocated memory after a reset, and one more step
+     under sync debug mode "error" (no wait); (b) one full-width step with
+     and without remat from the same state and batch: phase 6's bars, the
+     running statistics within 1e-6 and `num_batches_tracked` at 1; (c)
+     the bf16 step at phase 6's (2, 3, 8, 32, 32) shape, residual branches
+     damped, on the card and on the CPU, each from the CPU's float64 step:
+     the card's gradients and each leaf at most 2x as far as the CPU's,
+     the gradients at most 0.5 and the loss 1e-2 from float64, the stem's
+     statistics within 5e-4 of the CPU's; (d) phase 9a's one-rank NCCL group with the remat step:
+     the collectives of a step, no wait; (e) the native host normalizer
+     (`csrc/preprocess.cc`, built with the host compiler) bitwise the numpy
+     path on phase 4's videos, host times of both.
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -85,6 +101,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -422,14 +439,19 @@ def _zero_launch_counts():
     wk.warp_forward.launches = wk.warp_image_grad.launches = wk.warp_coord_grad.launches = 0
 
 
-def _step_grads(device, batch):
+def _step_grads(device, batch, dtype=torch.float32):
     """Loss and per-parameter gradients (float64, CPU) of one fused train
-    step from the seed-3 state at the batch's size, on `device`."""
+    step from the seed-3 state at the batch's size, on `device`: float64
+    casts the model and its outputs, bf16 sets `TrainConfig.compute_dtype`."""
     n, _, t, h, _ = batch["video"].shape
-    cfg = TrainConfig(clip_length=t, image_size=(h, h), batch_size=n)
+    cfg = TrainConfig(clip_length=t, image_size=(h, h), batch_size=n,
+                      compute_dtype=torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
     state = create_train_state(3, cfg, device=device)
-    state, m = make_train_step(fused_ota=True)(
-        state, {k: torch.as_tensor(v).to(device) for k, v in batch.items()})
+    b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    if dtype == torch.float64:
+        state.model.double().output_dtype = torch.float64
+        b["video"] = b["video"].double()
+    state, m = make_train_step(fused_ota=True)(state, b)
     grads = {k: p.grad.detach().double().cpu() for k, p in state.model.named_parameters()}
     return float(m["loss"]), grads
 
@@ -568,13 +590,18 @@ def smoke_weights(seed=0):
     return state
 
 
+def main_path_videos():
+    """Phase 4's three synthetic 176-frame 112x112 uint8 videos."""
+    return [make_beating_video(num_frames=176, period=p, seed=s).video.astype(np.uint8)
+            for s, p in ((1, 38.0), (2, 44.0), (3, 50.0))]
+
+
 def phase_main_path():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     state = smoke_weights()
     engine = VideoSegmenter(state, dtype=torch.float32)
-    videos = [make_beating_video(num_frames=176, period=p, seed=s).video.astype(np.uint8)
-              for s, p in ((1, 38.0), (2, 44.0), (3, 50.0))]
+    videos = main_path_videos()
     engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")  # warm-up
     torch.cuda.synchronize()
 
@@ -1171,6 +1198,276 @@ def phase_camus():
     return {"losses": out, "train": runs, "launches": launches}
 
 
+# Phase 11: bf16 mixed-precision and rematerialized train steps, and the
+# native host normalizer.
+PRECISION_VARIANTS = (("fp32", torch.float32, False), ("fp32_remat", torch.float32, True),
+                      ("bf16", torch.bfloat16, False), ("bf16_remat", torch.bfloat16, True))
+REMAT_STATS_TOL = 1e-6   # running statistics, remat vs plain step on the card (relative)
+BF16_RATIO = 2.0         # card bf16 step's distance from float64 / the CPU port's, at most
+BF16_GRAD_ABS = 0.5      # a bf16 step's gradients from float64, at most (relative L2)
+BF16_LOSS_TOL = 1e-2     # a bf16 step's loss from float64, at most (relative)
+STEM_STATS_TOL = 5e-4    # the stem's running-statistics update, card vs CPU bf16 (relative L2)
+RESIDUAL_SCALE = 0.1     # `damped_residuals`: each residual branch's last BatchNorm scale x this
+
+
+def damped_residuals(state_dict):
+    """`state_dict` with each residual branch's last BatchNorm scale
+    (`layer*.*.conv2.1.weight`) times `RESIDUAL_SCALE`: the network starts
+    near its identity, as torchvision's `zero_init_residual` starts a
+    ResNet, but every leaf keeps a gradient. At the plain seeded init a
+    train-mode bf16 step is chaotic: each BatchNorm renormalizes its
+    branch's bf16 rounding, which grows about 1.2x a conv through the 18
+    layers, and the gradients come out 1.2 from float64 on the CPU and on
+    the card alike, so a ratio of two such distances holds anything.
+    Damped, they are about 0.2 (tests/test_torch_precision.py)."""
+    return {k: v * RESIDUAL_SCALE if ".conv2.1.weight" in k and ".layer" in k else v
+            for k, v in state_dict.items()}
+
+
+def _stem_stats(model):
+    """The stem's running statistics (its two BatchNorms), one float64
+    vector on the CPU."""
+    return torch.cat([v.detach().double().cpu().reshape(-1)
+                      for k, v in model.state_dict().items()
+                      if k.startswith("r2plus1d_model.stem.") and "running" in k])
+
+
+def _damped_step(device, batch, dtype):
+    """`_step_grads`' step from the seed-3 state with `damped_residuals`:
+    its loss, gradients (float64, CPU) and the stem's running-statistics
+    update."""
+    n, _, t, h, _ = batch["video"].shape
+    cfg = TrainConfig(clip_length=t, image_size=(h, h), batch_size=n,
+                      compute_dtype=torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    state = create_train_state(3, cfg, device=device)
+    state.model.load_state_dict(damped_residuals(state.model.state_dict()))
+    before = _stem_stats(state.model)
+    b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    if dtype == torch.float64:
+        state.model.double().output_dtype = torch.float64
+        b["video"] = b["video"].double()
+    state, m = make_train_step(fused_ota=True)(state, b)
+    return float(m["loss"]), _grad_dict(state.model), _stem_stats(state.model) - before
+
+
+def sync_error(fn):
+    """fn() under torch's sync debug mode "error": (fn's result, None), or
+    (None, the error of the first call that waited for the device)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(), None
+    except RuntimeError as exc:
+        return None, str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase_precision_steps():
+    """Phase 11a: 3 full-width fused steps of each of fp32, fp32 with
+    remat, bf16 and bf16 with remat from the seed-0 state on phase 6's
+    batches, after one warm-up step (cuDNN's first bf16 calls): the warp
+    launches (zeroed just before, 31/30/62 a step), the median unprofiled
+    step time, the peak allocated memory after a reset, and one more step
+    under sync debug mode "error"."""
+    cfg = TrainConfig()
+    t = cfg.clip_length
+    host = list(synthetic_batches(cfg.batch_size, t, cfg.image_size[0], 5, seed=0))
+    want = (3 * (t - 1), 3 * (t - 2), 3 * 2 * (t - 1))
+    names = ("warp_forward", "warp_image_grad", "warp_coord_grad")
+    out = {}
+    for name, dtype, remat in PRECISION_VARIANTS:
+        state = create_train_state(0, dataclasses.replace(cfg, compute_dtype=dtype),
+                                   device="cuda")
+        batches = list(prefetch_to_device(iter(host), "cuda"))
+        step = make_train_step(fused_ota=True, remat=remat)
+        state, _ = step(state, batches[4])   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        step_ms, losses = [], []
+        for batch in batches[:3]:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        _, error = sync_error(lambda: step(state, batches[3]))
+        out[name] = dict(launches=dict(zip(names, counts)), step_ms=step_ms,
+                         median_ms=statistics.median(step_ms), peak_bytes=peak, losses=losses,
+                         sync_error=error)
+        log(f"precision (a) {name}: launches (K2, K3, K4) {counts}, implied {want}; step ms "
+            f"{[round(x, 1) for x in step_ms]}, median {out[name]['median_ms']:.1f} (host "
+            f"clock, unprofiled); peak allocated {peak / 2**30:.3f} GiB; losses "
+            f"{[round(x, 5) for x in losses]}; waits under sync mode 'error': "
+            f"{0 if error is None else error}")
+        if counts != want or error is not None or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} step: launches {counts}, sync error {error}, "
+                                 f"losses {losses}")
+        if not all(p.dtype == torch.float32 for p in state.model.parameters()):
+            raise AssertionError(f"{name}: the parameters are no longer fp32")
+        del state, batches, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat_vs_plain():
+    """Phase 11b: one full-width fused step with and without remat from the
+    same seed-0 state and batch: loss, gradients and leaves at phase 6's
+    bars, running statistics within `REMAT_STATS_TOL`, and
+    `num_batches_tracked` at exactly 1 (one update a forward)."""
+    cfg = TrainConfig()
+    host = next(synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 1, seed=0))
+    runs = {}
+    for remat in (False, True):
+        state = create_train_state(0, cfg, device="cuda")
+        before = {k: v.clone() for k, v in state.model.state_dict().items() if "running" in k}
+        batch = {k: torch.as_tensor(v).to("cuda") for k, v in host.items()}
+        state, m = make_train_step(fused_ota=True, remat=remat)(state, batch)
+        stats = {k: v.double().cpu() for k, v in state.model.state_dict().items()
+                 if "running" in k or "num_batches" in k}
+        runs[remat] = (float(m["loss"]), _grad_dict(state.model), stats,
+                       {k: v.double().cpu() for k, v in before.items()})
+        del state, batch
+        torch.cuda.empty_cache()
+    cmp = _compare_steps(runs[True][0], runs[True][1], runs[False][0], runs[False][1])
+    plain, remat = runs[False][2], runs[True][2]
+    stat_keys = [k for k in plain if "running" in k]
+    stats_rel = max(float((remat[k] - plain[k]).abs().max() / plain[k].abs().max())
+                    for k in stat_keys)
+    # What a second update with the same batch would add: 0.9 x the first move.
+    second = max(float((0.9 * (plain[k] - runs[False][3][k])).abs().max()
+                       / plain[k].abs().max()) for k in stat_keys)
+    tracked = {int(v) for k, v in remat.items() if "num_batches" in k}
+    log(f"precision (b) remat vs plain, one full-width step: loss rel {cmp['loss_rel']:.2e} "
+        f"(limit {LOSS_TOL:.0e}), gradients {cmp['grad_rel']:.2e} (limit {GRAD_TOL:.0e}), "
+        f"worst leaf {cmp['leaf_rel']:.2e} (limit {LEAF_TOL:.0e}), zero leaves "
+        f"{cmp['zero_leaf']:.2e}; running stats {stats_rel:.2e} (limit "
+        f"{REMAT_STATS_TOL:.0e}; a second update would move them {second:.2e}); "
+        f"num_batches_tracked {sorted(tracked)} (want [1])")
+    if not (cmp["loss_rel"] <= LOSS_TOL and cmp["grad_rel"] <= GRAD_TOL
+            and cmp["leaf_rel"] <= LEAF_TOL and cmp["zero_leaf"] <= ZERO_LEAF
+            and stats_rel <= REMAT_STATS_TOL and tracked == {1}):
+        raise AssertionError("the remat step disagrees with the plain step")
+    return dict(cmp, stats_rel=stats_rel, second_update=second)
+
+
+def phase_bf16_vs_float64():
+    """Phase 11c: the bf16 step at phase 6's (2, 3, 8, 32, 32) shape from
+    the seed-3 state with `damped_residuals`, on the card and on the CPU,
+    each measured from the CPU port's float64 step: the card's gradients
+    and each live leaf at most `BF16_RATIO` x as far as the CPU's, all
+    gradients at most `BF16_GRAD_ABS`, the loss within `BF16_LOSS_TOL`,
+    and the stem's running-statistics update within `STEM_STATS_TOL` of
+    the CPU's bf16 one (where the two bf16 forwards have not diverged yet,
+    so statistics reduced in bf16 show). The loss is one number, the sum
+    of many roundings, so the ratio of two such distances is noise (card
+    2.1e-3 against the CPU's 8.0e-4 in one run); it has an absolute bar."""
+    small = next(synthetic_batches(2, 8, 32, 1, seed=11))
+    ref_loss, ref, _ = _damped_step("cpu", small, torch.float64)
+    runs = {dev: _damped_step(dev, small, torch.bfloat16) for dev in ("cuda", "cpu")}
+    dist = {dev: _compare_steps(loss, grads, ref_loss, ref)
+            for dev, (loss, grads, _) in runs.items()}
+    top = max(float(g.norm()) for g in ref.values())
+    live = [k for k, g in ref.items() if float(g.norm()) > ZERO_LEAF * top]
+    leaves = {k: tuple(float((runs[dev][1][k] - ref[k]).norm() / ref[k].norm())
+                       for dev in ("cuda", "cpu")) for k in live}
+    worst = max(leaves, key=lambda k: leaves[k][0] / leaves[k][1])
+    stem = float((runs["cuda"][2] - runs["cpu"][2]).norm() / runs["cpu"][2].norm())
+    card, cpu = dist["cuda"], dist["cpu"]
+    log(f"precision (c) bf16 step at (2, 3, 8, 32, 32), damped residuals, from the CPU "
+        f"float64 step: card loss {card['loss_rel']:.3e}, gradients {card['grad_rel']:.3e}; "
+        f"CPU loss {cpu['loss_rel']:.3e}, gradients {cpu['grad_rel']:.3e} (limits: loss "
+        f"{BF16_LOSS_TOL:.0e}, gradients {BF16_RATIO}x the CPU's and {BF16_GRAD_ABS}); "
+        f"worst leaf ratio {worst} "
+        f"{leaves[worst][0]:.3e} / {leaves[worst][1]:.3e}; CPU leaves under 0.5: "
+        f"{sum(c < 0.5 for _, c in leaves.values())} of {len(live)}; stem statistics "
+        f"{stem:.2e} from the CPU's (limit {STEM_STATS_TOL:.0e})")
+    bad = [name for name, (a, b) in (("gradients", (card["grad_rel"], cpu["grad_rel"])),
+                                     *leaves.items()) if a > BF16_RATIO * b]
+    if bad or card["grad_rel"] > BF16_GRAD_ABS or card["loss_rel"] > BF16_LOSS_TOL \
+            or stem > STEM_STATS_TOL:
+        raise AssertionError(f"the card's bf16 step: {bad}, gradients {card['grad_rel']}, "
+                             f"loss {card['loss_rel']}, stem statistics {stem}")
+    return {"card": card, "cpu": cpu, "worst_leaf": [worst, *leaves[worst]], "stem": stem}
+
+
+def phase_remat_dp():
+    """Phase 11d: phase 9a's one-rank NCCL group with the remat step: after
+    DDP's bucket rebuild, the collectives of one step (host records; the
+    recompute issues BatchNorm's all-gathers again) and, under sync mode
+    "error", no wait."""
+    import torch.distributed as dist
+
+    from echoflow_torch.train.loop import data_parallel
+
+    cfg = TrainConfig()
+    host = list(synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 3,
+                                  seed=0))
+    batches = list(prefetch_to_device(iter(host), "cuda"))
+    step = make_train_step(fused_ota=True, remat=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                world_size=1, rank=0)
+        try:
+            state = data_parallel(create_train_state(0, cfg, device="cuda"))
+            state, _ = step(state, batches[0])
+            state, _ = step(state, batches[1])   # DDP rebuilds its buckets once, here
+            _, error = sync_error(lambda: step(state, batches[2]))
+            torch.cuda.synchronize()
+            collectives = collections.Counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(state, batches[0])
+                torch.cuda.synchronize()
+            for evt in prof.events():
+                if evt.device_type == torch.autograd.DeviceType.CPU and \
+                        evt.name.startswith("nccl:"):
+                    collectives[evt.name] += 1
+            del state
+        finally:
+            dist.destroy_process_group()
+    del batches
+    torch.cuda.empty_cache()
+    log(f"precision (d) remat DP step, one-rank NCCL group: collectives (host record) "
+        f"{sum(collectives.values())} {dict(collectives)}; waits under sync mode 'error': "
+        f"{0 if error is None else error}")
+    if error is not None:
+        raise AssertionError(f"the remat DP step waits for the device: {error}")
+    return {"collectives": sum(collectives.values()), "by_name": dict(collectives)}
+
+
+def phase_native_normalizer(videos):
+    """Phase 11e: the native host normalizer, built here with the host
+    compiler, bitwise the numpy path on phase 4's three uint8 videos;
+    host times (median of 5) of both."""
+    from echoflow_torch.ops.native import zeroone_normalize_native
+    from echoflow_torch.ops.normalize import zeroone_normalizer_numpy
+
+    t0 = time.perf_counter()
+    zeroone_normalize_native(videos[0][:, :1])
+    build_s = time.perf_counter() - t0
+    times = {"native": [], "numpy": []}
+    for v in videos:
+        got, want = zeroone_normalize_native(v), zeroone_normalizer_numpy(v)
+        if not np.array_equal(got, want):
+            raise AssertionError("the native normalizer differs from the numpy path")
+        for name, fn in (("native", zeroone_normalize_native),
+                         ("numpy", zeroone_normalizer_numpy)):
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(v)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            times[name].append(statistics.median(runs))
+    log(f"precision (e) native normalizer: built and loaded in {build_s:.2f} s; bitwise the "
+        f"numpy path on {len(videos)} uint8 videos {videos[0].shape}; host ms a video: "
+        f"native {[round(x, 2) for x in times['native']]}, numpy "
+        f"{[round(x, 2) for x in times['numpy']]} ({os.cpu_count()} host cores)")
+    return {"build_s": build_s, "native_ms": times["native"], "numpy_ms": times["numpy"]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1197,6 +1494,9 @@ def main():
     del main_run
     dp["dryrun"] = phase_dp_dryrun()
     camus = phase_camus()
+    precision = {"steps": phase_precision_steps(), "remat_vs_plain": phase_remat_vs_plain(),
+                 "bf16_vs_float64": phase_bf16_vs_float64(), "remat_dp": phase_remat_dp(),
+                 "native_normalizer": phase_native_normalizer(main_path_videos())}
 
     main_variant = k1[False]
     kernels = [{
@@ -1241,9 +1541,12 @@ def main():
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
             "shapes": by_shape,
-            # Phase 9a: one DP step; phase 10a: both CAMUS losses.
+            # Phase 9a: one DP step; phase 10a: both CAMUS losses; phase 11a:
+            # 3 steps of each precision and remat variant.
             "dp_launches": dp["train"]["launches"][name],
             "camus_launches": camus["launches"][name],
+            "precision_launches": {v: r["launches"][name]
+                                   for v, r in precision["steps"].items()},
         })
     # Phase 7: K2 in the bilinear rollouts of infer/propagate.py.
     next(k for k in kernels if k["name"] == "warp_forward").update(
@@ -1251,7 +1554,10 @@ def main():
         inference_bound_ms=clips["k2_bound_ms_per_launch"])
     log(f"cli wall {cli['seconds']:.2f} s; clip forward {clips['clip_seconds'] * 1e3:.1f} ms; "
         f"DP step collectives {dp['train']['collectives']}, syncs "
-        f"{dp['train']['syncs_per_step']}; dryrun {dp['dryrun']['seconds']:.1f} s ({smi})")
+        f"{dp['train']['syncs_per_step']}; dryrun {dp['dryrun']['seconds']:.1f} s; remat DP "
+        f"step collectives {precision['remat_dp']['collectives']}; step ms (median) and peak "
+        f"GiB: " + ", ".join(f"{k} {v['median_ms']:.1f} / {v['peak_bytes'] / 2**30:.3f}"
+                             for k, v in precision["steps"].items()) + f" ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,8 +70,8 @@ class ClipForward:
         model.eval().requires_grad_(False)
         if self.fold_bn:
             model.r2plus1d_model.to(self.dtype)
-        else:
-            model.to(self.dtype)
+        else:   # fp32 parameters, BatchNorm statistics included (flax's rule)
+            model.compute_dtype = self.dtype
         self._model = model.to(self.device)
 
     @torch.no_grad()

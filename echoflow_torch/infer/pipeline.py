@@ -266,7 +266,9 @@ class VideoSegmenter:
         model.load_state_dict(state)
         model.eval().requires_grad_(False)
         if self.decoder == "model":
-            model.to(self.dtype)
+            # fp32 parameters computing in `dtype` (flax's rule: an unfolded
+            # model keeps fp32 BatchNorm statistics).
+            model.compute_dtype = self.dtype
         else:
             model.r2plus1d_model.to(bdt)
         # One replica per distinct device; the first device's is `_model`.

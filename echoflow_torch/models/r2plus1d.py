@@ -18,6 +18,14 @@ With `folded=True` every BatchNorm is an `nn.Identity` and the conv before
 it has a bias (`models/fold_bn.py` writes both); the sequential indices
 stay those of the reference, so a folded state dict keeps its key names.
 
+Mixed precision is flax's rule, as echoflow's model applies it with
+`dtype=bfloat16` (`compute_dtype` here): the parameters stay fp32; each
+conv and projection casts its input, weight and bias to the compute dtype
+and returns it, as do the interpolation matrices and the comb1 bias;
+BatchNorm reduces and normalizes in fp32 and returns the compute dtype,
+with fp32 running statistics; `tanh` runs on the compute-dtype motion; the
+outputs are cast to `output_dtype` (fp32) at the end.
+
 The decoder never materializes the 1024-channel concat: 1x1x1 convolution
 and trilinear upsampling are both linear, so comb1(concat_i(up(f_i))) ==
 sum_i up(f_i @ W_i) + b. Each tap is projected to 64 channels at its native
@@ -27,6 +35,7 @@ resolution, projections that share a resolution are summed first
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -37,6 +46,12 @@ from echoflow_torch.models.fast_forward import merged_projections
 from echoflow_torch.ops.resize import trilinear_resize
 
 BN_EPS = 1e-5
+
+
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """BatchNorm's reduction dtype: at least fp32 (flax's
+    `force_float32_reductions`), float64 for a float64 input."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def midplanes(in_ch: int, out_ch: int) -> int:
@@ -55,14 +70,16 @@ class _GlobalBatchNorm(torch.autograd.Function):
     two sums accumulated in float64 and all-reduced, one collective; the
     weight and bias get this rank's part (DDP averages the ranks'). The
     sums in float64 keep the cancellation in dx accurate: the same step
-    through autograd of the fp32 formula was 25x further from float64."""
+    through autograd of the fp32 formula was 25x further from float64.
+    A bf16 input is reduced and normalized in fp32 (`_stat_dtype`), as in
+    one process, and its output and dx are bf16."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, group):
         import torch.distributed as dist
 
-        dims = (0, 2, 3, 4)
-        var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+        dims, stat = (0, 2, 3, 4), _stat_dtype(x)
+        var, mean = torch.var_mean(x.to(stat), dim=dims, unbiased=False)
         count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float64,
                            device=x.device)
         local = torch.cat([count, mean.double(), var.double()])
@@ -74,7 +91,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         n = counts.sum()
         g_mean = (counts * means).sum(0) / n
         g_var = (counts * (vars_ + (means - g_mean) ** 2)).sum(0) / n
-        mean, var = g_mean.to(x.dtype), g_var.to(x.dtype)
+        mean, var = g_mean.to(stat), g_var.to(stat)
         invstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.group, ctx.count = group, n
@@ -93,10 +110,11 @@ class _GlobalBatchNorm(torch.autograd.Function):
         sums = local.clone()
         dist.all_reduce(sums, group=ctx.group)
         c = x.shape[1]
-        mean_dy = (sums[:c] / ctx.count).to(x.dtype).reshape(shape)
-        mean_dy_xhat = (sums[c:] / ctx.count).to(x.dtype).reshape(shape)
+        mean_dy = (sums[:c] / ctx.count).to(mean.dtype).reshape(shape)
+        mean_dy_xhat = (sums[c:] / ctx.count).to(mean.dtype).reshape(shape)
         dx = (weight * invstd).reshape(shape) * (dy - mean_dy - x_hat * mean_dy_xhat)
-        return dx, local[c:].to(weight.dtype), local[:c].to(weight.dtype), None, None
+        return (dx.to(x.dtype), local[c:].to(weight.dtype), local[:c].to(weight.dtype),
+                None, None)
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -116,22 +134,34 @@ class BatchNorm3d(nn.BatchNorm3d):
     BatchNorm does on a `data` mesh, with the gradient of the global
     statistics (`_GlobalBatchNorm`). It runs at any group size, one
     included. (`nn.SyncBatchNorm` would update `running_var` with the
-    unbiased variance and skip the reduction at world size 1.)"""
+    unbiased variance and skip the reduction at world size 1.)
+
+    A bf16 input is normalized in fp32 (`F.batch_norm` of a bf16 input
+    with fp32 parameters computes in fp32 and rounds its output once) and
+    its statistics are reduced in fp32, as flax's BatchNorm does with
+    `dtype=bfloat16`. With `frozen` set (`frozen_running_stats`, during
+    a rematerialized forward) the running statistics are not moved."""
 
     process_group = None
+    frozen = False
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        mean = var = None
         if self.process_group is not None:
             y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps,
                                                   self.process_group)
         else:
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-            var, mean = torch.var_mean(x.detach(), dim=(0, 2, 3, 4), unbiased=False)
+        if self.frozen:
+            return y
         with torch.no_grad():
-            self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype), self.momentum)
-            self.running_var.lerp_(var.detach().to(self.running_var.dtype), self.momentum)
+            if mean is None:
+                var, mean = torch.var_mean(x.to(_stat_dtype(x)), dim=(0, 2, 3, 4),
+                                           unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked.add_(1)
         return y
 
@@ -145,6 +175,33 @@ def sync_batchnorm(model: nn.Module, group) -> nn.Module:
     return model
 
 
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Inside the block no `BatchNorm3d` of `model` moves its running
+    statistics or `num_batches_tracked`: the recompute of a rematerialized
+    forward (`torch.utils.checkpoint`) sees the batch the first forward
+    already counted. Train-mode outputs do not depend on the running
+    statistics, so the recompute's values are the first forward's."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm3d)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
+
+
+class Conv3d(nn.Conv3d):
+    """`nn.Conv3d` that computes in its input's dtype: the weight and bias
+    are cast to it (flax's `promote_dtype` in `nn.Conv`), so fp32
+    parameters run a bf16 forward and get fp32 gradients."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def _bn(ch: int, folded: bool) -> nn.Module:
     # torch momentum 0.1 is flax momentum 0.9 (running-stat update weight).
     return nn.Identity() if folded else BatchNorm3d(ch, eps=BN_EPS, momentum=0.1)
@@ -154,10 +211,10 @@ def _conv2plus1d(cin, cout, mid, stride, folded):
     """spatial (1,3,3) -> BN -> ReLU -> temporal (3,1,1); indices 0, 1, 3
     as torchvision's Conv2Plus1D."""
     return nn.Sequential(
-        nn.Conv3d(cin, mid, (1, 3, 3), (1, stride, stride), (0, 1, 1), bias=folded),
+        Conv3d(cin, mid, (1, 3, 3), (1, stride, stride), (0, 1, 1), bias=folded),
         _bn(mid, folded),
         nn.ReLU(inplace=True),
-        nn.Conv3d(mid, cout, (3, 1, 1), (stride, 1, 1), (1, 0, 0), bias=folded),
+        Conv3d(mid, cout, (3, 1, 1), (stride, 1, 1), (1, 0, 0), bias=folded),
     )
 
 
@@ -175,7 +232,7 @@ class BasicBlock(nn.Module):
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv3d(cin, cout, 1, (stride,) * 3, bias=folded), _bn(cout, folded))
+                Conv3d(cin, cout, 1, (stride,) * 3, bias=folded), _bn(cout, folded))
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, x):
@@ -190,9 +247,9 @@ class R2Plus1DBackbone(nn.Module):
     def __init__(self, folded: bool = False):
         super().__init__()
         self.stem = nn.Sequential(
-            nn.Conv3d(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3), bias=folded),
+            Conv3d(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3), bias=folded),
             _bn(45, folded), nn.ReLU(inplace=True),
-            nn.Conv3d(45, 64, (3, 1, 1), 1, (1, 0, 0), bias=folded),
+            Conv3d(45, 64, (3, 1, 1), 1, (1, 0, 0), bias=folded),
             _bn(64, folded), nn.ReLU(inplace=True),
         )
         plan = [(64, 64, 1), (64, 128, 2), (128, 256, 2), (256, 512, 2)]
@@ -217,38 +274,41 @@ class R2Plus1DMotionSegNet(nn.Module):
         video (N, 3, T, H, W) float; seg (N, 2, T, H, W) float32;
         motion (N, 4, T, H, W) float32, tanh-bounded.
 
-    The forward computes in the dtype of the module's parameters (cast the
-    module with `.to(torch.bfloat16)` for the bf16 path). The outputs are
-    float32, as the reference's and echoflow's; the parity tests of data
-    parallelism set `output_dtype` to float64 on a float64 module, so its
-    whole train step runs in float64. It is also the
-    training forward (autograd, train-mode BatchNorm); the decoder-tail
-    kernel has no backward and serves inference only, as in echoflow.
+    The forward computes in `compute_dtype`, or, when that is None, in the
+    dtype of the module's parameters. `compute_dtype=torch.bfloat16` on
+    fp32 parameters is echoflow's `dtype=bfloat16` model (see the module
+    docstring), the bf16 training forward. The outputs are `output_dtype`,
+    float32 as the reference's and echoflow's; the parity tests of data
+    parallelism set it to float64 on a float64 module, so its whole train
+    step runs in float64. It is also the training forward (autograd,
+    train-mode BatchNorm); the decoder-tail kernel has no backward and
+    serves inference only, as in echoflow.
     """
 
     output_dtype = torch.float32
+    compute_dtype = None
 
     def __init__(self, folded: bool = False):
         super().__init__()
         self.folded = folded
         self.r2plus1d_model = R2Plus1DBackbone(folded)
-        self.comb_1_layer = nn.Conv3d(1024, 64, 1)
+        self.comb_1_layer = Conv3d(1024, 64, 1)
         self.comb_batch_norm_1 = _bn(64, folded)
-        self.comb_2_layer = nn.Conv3d(64, 64, 1)
+        self.comb_2_layer = Conv3d(64, 64, 1)
         self.comb_batch_norm_2 = _bn(64, folded)
-        self.motion_head = nn.Conv3d(64, 4, 1)
-        self.segmentation_head = nn.Conv3d(64, 2, 1)
+        self.motion_head = Conv3d(64, 4, 1)
+        self.segmentation_head = Conv3d(64, 2, 1)
 
     def forward(self, video):
         t, h, w = video.shape[2:]
-        dtype = self.comb_1_layer.weight.dtype
+        dtype = self.compute_dtype or self.comb_1_layer.weight.dtype
         taps = self.r2plus1d_model(video.to(dtype))
         acc = None
         for proj in merged_projections(taps, self.comb_1_layer.weight, dtype):
             up = trilinear_resize(proj, (t, h, w), align_corners=True, axes=(1, 2, 3))
             acc = up if acc is None else acc + up
         # Channels-last (N, T, H, W, 64) -> (N, 64, T, H, W) for the BNs.
-        y = (acc + self.comb_1_layer.bias).permute(0, 4, 1, 2, 3)
+        y = (acc + self.comb_1_layer.bias.to(dtype)).permute(0, 4, 1, 2, 3)
         y = torch.relu(self.comb_batch_norm_1(y))
         y = torch.relu(self.comb_batch_norm_2(self.comb_2_layer(y)))
         seg = self.segmentation_head(y)

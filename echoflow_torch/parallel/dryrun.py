@@ -49,28 +49,33 @@ def _leaf_sums(model) -> dict:
 
 def dp_train_steps(rank: int, world: int, state_dict: dict, batches: list,
                    recipe: str = "clasfv", dtype: str = "float32",
-                   log_path: str | None = None) -> dict:
+                   log_path: str | None = None, remat: bool = False,
+                   compute_dtype: str = "float32") -> dict:
     """`fit_on_mesh` over the global host batches `batches` with the
-    recipe's train step ("clasfv", fused, or "ed_es_only"), from the model
-    `state_dict` (numpy arrays) in `dtype` (float64 runs the whole step in
-    float64, outputs included), at the optimizer's defaults (lr 1e-4), the
-    metrics logged every step (to a `MetricsLogger` at `log_path` on rank
-    0). Returns the history and the log lines, and on rank 0 each step's
-    gradients and the final state dict (numpy); every rank returns the sums
-    of its final state's leaves, which must agree."""
+    recipe's train step ("clasfv", fused, or "ed_es_only"; rematerialized
+    with `remat`), from the model `state_dict` (numpy arrays) in `dtype`
+    (float64 runs the whole step in float64, outputs included), computing
+    in `TrainConfig.compute_dtype` `compute_dtype`, at the optimizer's
+    defaults (lr 1e-4), the metrics logged every step (to a
+    `MetricsLogger` at `log_path` on rank 0). Returns the history and the
+    log lines, and on rank 0 each step's gradients and the final state
+    dict (numpy); every rank returns the sums of its final state's leaves,
+    which must agree."""
     from echoflow_torch.train.loop import (TrainConfig, create_train_state, fit_on_mesh,
                                            make_ed_es_only_train_step, make_train_step)
     from echoflow_torch.utils.metrics_log import MetricsLogger
 
     device = _rank_device(rank)
     n, _, t, h, w = next(v for k, v in batches[0].items() if "video" in k).shape
-    state = create_train_state(0, TrainConfig(clip_length=t, image_size=(h, w),
-                                              batch_size=n), device=device)
+    state = create_train_state(0, TrainConfig(clip_length=t, image_size=(h, w), batch_size=n,
+                                              compute_dtype=getattr(torch, compute_dtype)),
+                               device=device)
     state.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                                  for k, v in state_dict.items()})
     torch_dtype = getattr(torch, dtype)
     state.model.to(torch_dtype).output_dtype = torch.promote_types(torch_dtype, torch.float32)
-    inner = make_train_step() if recipe == "clasfv" else make_ed_es_only_train_step()
+    inner = (make_train_step(remat=remat) if recipe == "clasfv"
+             else make_ed_es_only_train_step(remat=remat))
     grads = []
 
     def recording_step():

@@ -10,7 +10,13 @@ A train step runs in fp32 by default: callers on the card turn TF32 off
 for cuDNN and matmul (`train_clasfv_torch.py` and `create_train_state`
 do). The model runs its own forward (autograd, train-mode BatchNorm with
 flax's running-statistics update); its warps go through the CUDA kernels
-K2-K4 on the card.
+K2-K4 on the card. `TrainConfig.compute_dtype=torch.bfloat16` runs the
+model in bf16 under flax's mixed-precision rule (parameters, Adam state
+and running statistics stay fp32; see `models/r2plus1d.py`); the loss and
+its warps stay fp32. `remat=True` rematerializes the model's forward in
+the backward (`torch.utils.checkpoint`), as echoflow's `jax.checkpoint`:
+the loss chain is not recomputed, and the recompute does not move
+BatchNorm's running statistics a second time.
 
 `fit` runs on the model's device. `fit_on_mesh` is echoflow's data
 parallelism over torch.distributed: one process per device, each rank
@@ -24,6 +30,7 @@ kept per-replica BatchNorm statistics).
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
@@ -31,8 +38,9 @@ from typing import Callable
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
-from echoflow_torch.models.r2plus1d import create_model, sync_batchnorm
+from echoflow_torch.models.r2plus1d import create_model, frozen_running_stats, sync_batchnorm
 from echoflow_torch.parallel.mesh import shard_batch
 from echoflow_torch.train.losses import (
     clasfv_total_loss,
@@ -50,6 +58,11 @@ class TrainConfig:
     clip_length: int = 32
     image_size: tuple = (112, 112)
     batch_size: int = 4
+    # The model's compute dtype (parameters and Adam state stay fp32).
+    # fp32 is the reference-parity default; bf16 is an opt-in that changes
+    # the optimization trajectory (echoflow's end-metric study,
+    # benchmarks/bf16_train_study.json: ES Dice 0.0056 below fp32).
+    compute_dtype: torch.dtype = torch.float32
 
 
 @dataclass
@@ -91,8 +104,11 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
 def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState:
     """A seeded full-width MotionNet (`create_model`'s init) in train mode on
     `device`, with its optimizer and a generator on the same device. The
-    default device is the card; without one this raises. fp32: on CUDA,
-    TF32 is turned off for cuDNN and matmul (process-wide)."""
+    default device is the card; without one this raises. The model
+    computes in `cfg.compute_dtype` (fp32 leaves it to the parameters'
+    dtype, so a caller may cast the model to float64); its parameters
+    stay fp32. On CUDA, TF32 is turned off for cuDNN and matmul
+    (process-wide), so the fp32 parts stay fp32."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -101,9 +117,32 @@ def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     model = create_model(seed=seed).to(device).train()
+    if cfg.compute_dtype != torch.float32:
+        model.compute_dtype = cfg.compute_dtype
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
                       schedule=lr_schedule(cfg), generator=generator)
+
+
+@contextlib.contextmanager
+def _cpu_conv_backend(model):
+    """oneDNN off for a train step of a bf16 model on the CPU: torch 2.11's
+    oneDNN computes a NaN weight gradient for a bf16 (3, 1, 1) conv over a
+    2-frame input (layer3's temporal conv at 8 frames; the conv alone, any
+    seed), and torch's own CPU conv kernels compute it. The forward runs
+    on the same kernels as the backward, so a rematerialized step's
+    recompute is the first forward's bit for bit. A CPU bf16 step at
+    (2, 3, 8, 32, 32) takes about 20x as long as with oneDNN. Anywhere
+    else this changes nothing."""
+    if model.compute_dtype != torch.bfloat16 or next(model.parameters()).is_cuda:
+        yield
+        return
+    enabled = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = enabled
 
 
 def _apply_update(state: TrainState, total):
@@ -160,57 +199,81 @@ def _step_metrics(total, aux, keys, batch, group=None):
     return {**terms, "ed_dice": ratio[0], "es_dice": ratio[1]}
 
 
-def _forwards(state: TrainState, *videos):
+@contextlib.contextmanager
+def _recompute(model):
+    with record_function("echoflow_torch.train.recompute"), frozen_running_stats(model):
+        yield
+
+
+def _model_forward(model, video, remat: bool):
+    """The model's forward of one video batch. With `remat` only its input
+    is kept for the backward, which runs the forward again when it first
+    needs an activation (`torch.utils.checkpoint`, non-reentrant), with
+    BatchNorm's running statistics frozen: the first forward counted this
+    batch. The forward draws no random numbers, so no RNG state is kept."""
+    if not remat:
+        return model(video)
+    return checkpoint(model, video, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute(model)))
+
+
+def _forwards(state: TrainState, *videos, remat: bool = False):
     """The model's train-mode forward of each video batch: through the DDP
     replica under data parallelism (one DDP call a step), else the model."""
     state.model.train()
     if state.replica is not None:
-        return state.replica(*videos)
-    return [state.model(v) for v in videos]
+        return state.replica(*videos, remat=remat)
+    return [_model_forward(state.model, v, remat) for v in videos]
 
 
-def make_train_step(fused_ota: bool = True):
+def make_train_step(fused_ota: bool = True, remat: bool = False):
     """Returns train_step(state, batch) -> (state, metrics). The step
     updates the model and optimizer in place; metrics are 0-d tensors on
     the model's device (read them only when logging).
 
     `fused_ota` (default) runs OTA's warps inside the chain loop
     (`clasfv_total_loss_fused`); False is the reference-literal schedule.
+    `remat` recomputes the model's forward in the backward instead of
+    keeping its activations (`_model_forward`); the values are the same.
     Batch keys: video (N, 3, T, H, W) float32, ed_label/es_label (N, H, W)
     int, ed_idx/es_idx (N,) int, all on the model's device."""
     loss_fn = clasfv_total_loss_fused if fused_ota else clasfv_total_loss
 
     def train_step(state: TrainState, batch):
-        with record_function("echoflow_torch.train.forward"):
-            (seg, motion), = _forwards(state, batch["video"])
-        with record_function("echoflow_torch.train.ota_and_chains"):
-            total, aux = loss_fn(batch["video"], seg, motion, batch["ed_label"],
-                                 batch["es_label"], batch["ed_idx"], batch["es_idx"],
-                                 group=state.group)
-        _apply_update(state, total)
+        with _cpu_conv_backend(state.model):
+            with record_function("echoflow_torch.train.forward"):
+                (seg, motion), = _forwards(state, batch["video"], remat=remat)
+            with record_function("echoflow_torch.train.ota_and_chains"):
+                total, aux = loss_fn(batch["video"], seg, motion, batch["ed_label"],
+                                     batch["es_label"], batch["ed_idx"], batch["es_idx"],
+                                     group=state.group)
+            _apply_update(state, total)
         return state, _step_metrics(total, aux, ("ota", "sgs", "ots", "edes_bce"), batch,
                                     state.group)
 
     return train_step
 
 
-def make_ed_es_only_train_step():
+def make_ed_es_only_train_step(remat: bool = False):
     """train_step(state, batch) -> (state, metrics) for the ed-or-es-only
     recipe: two forward passes per step, one on the ED-covering clips and
     one on the ES-covering clips, as the reference runs them (BatchNorm
-    sees each clip set as its own batch). Batch keys: ed_video/es_video
-    (N, 3, T, H, W), ed_label/es_label (N, H, W), ed_idx/es_idx (N,)."""
+    sees each clip set as its own batch, and moves its running statistics
+    once for each, in that order, with `remat` too). Batch keys:
+    ed_video/es_video (N, 3, T, H, W), ed_label/es_label (N, H, W),
+    ed_idx/es_idx (N,)."""
 
     def train_step(state: TrainState, batch):
-        with record_function("echoflow_torch.train.forward"):
-            (ed_seg, ed_motion), (es_seg, es_motion) = _forwards(
-                state, batch["ed_video"], batch["es_video"])
-        with record_function("echoflow_torch.train.ota_and_chains"):
-            total, aux = ed_es_only_total_loss(
-                batch["ed_video"], batch["es_video"], ed_seg, ed_motion, es_seg, es_motion,
-                batch["ed_label"], batch["es_label"], batch["ed_idx"], batch["es_idx"],
-                group=state.group)
-        _apply_update(state, total)
+        with _cpu_conv_backend(state.model):
+            with record_function("echoflow_torch.train.forward"):
+                (ed_seg, ed_motion), (es_seg, es_motion) = _forwards(
+                    state, batch["ed_video"], batch["es_video"], remat=remat)
+            with record_function("echoflow_torch.train.ota_and_chains"):
+                total, aux = ed_es_only_total_loss(
+                    batch["ed_video"], batch["es_video"], ed_seg, ed_motion, es_seg,
+                    es_motion, batch["ed_label"], batch["es_label"], batch["ed_idx"],
+                    batch["es_idx"], group=state.group)
+            _apply_update(state, total)
         return state, _step_metrics(total, aux, ("ota", "flow", "edes_bce"), batch,
                                     state.group)
 
@@ -319,8 +382,8 @@ class _Replicas(torch.nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, *videos):
-        return [self.model(v) for v in videos]
+    def forward(self, *videos, remat: bool = False):
+        return [_model_forward(self.model, v, remat) for v in videos]
 
 
 def data_parallel(state: TrainState, group=None) -> TrainState:

@@ -2,8 +2,9 @@
 """Where the time of echoflow_torch's main path goes on one NVIDIA GPU.
 
     python3 profile_torch.py [--videos 3] [--dtype float32|bfloat16] [--out PATH]
-    python3 profile_torch.py --train [--out PATH]
+    python3 profile_torch.py --train [--compute-dtype fp32|bf16] [--remat] [--out PATH]
     python3 profile_torch.py --clips 8 [--out PATH]
+    python3 profile_torch.py CHECKPOINT [CHECKPOINT ...] [--out PATH]
 
 Runs the engine of chip_smoke.py (full-width R(2+1)D-18, seeded weights,
 5 shifts, step 1, SIMPLE fusion, 176-frame 112x112 uint8 videos) once to
@@ -22,11 +23,27 @@ autograd's device thread, outside the range opened on the calling thread;
 they count for `train.backward`. One more step, not profiled, runs with
 torch's sync debug mode set to "warn": `syncs_per_step` counts the calls
 in it that waited for the device, by the line that made them.
+`--compute-dtype bf16` profiles the bf16 mixed-precision step
+(`TrainConfig.compute_dtype`), `--remat` the rematerialized one, whose
+forward runs again in the backward under the range
+`echoflow_torch.train.recompute`; `peak_gib` is the step's peak allocated
+memory.
 
 With --clips CHUNK it profiles `chip_smoke.py` phase 7's workload: one
 `ClipForward` call (fp32, with the motion head) on 16 full-width clips in
 chunks of CHUNK, by layer, and the bilinear rollouts on their motion with
 K2's launches by device time.
+
+With CHECKPOINT arguments (the port's `.pth`, e.g. `train_clasfv_torch.py`'s
+`<out>.last`) it evaluates them instead, as echoflow's bf16 training study
+does: each is loaded into one fp32 model and run through the same fp32
+eval step (`train/loop.make_eval_step`) on the same held-out synthetic set
+of 16 batches of 4 x 3 x 32 x 112 x 112, drawn from a seed population
+disjoint from training's, so two runs that differ in their training dtype
+are compared on their weights alone; the first checkpoint's weights then
+run the engine in fp32, bf16 and mixed (bf16 backbone) on chip_smoke.py
+phase 4's three videos (5 shifts, step 1, SIMPLE): the share of pixels
+where the bf16 and mixed masks differ from fp32's.
 
 A layer is a `record_function` range of the engine (`echoflow_torch.<layer>`,
 see echoflow_torch/infer/pipeline.py): each device kernel or copy counts
@@ -48,7 +65,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import count_syncs, nvidia_smi_line, smoke_weights
+from chip_smoke import count_syncs, main_path_videos, nvidia_smi_line, smoke_weights
 from echoflow_torch.data.synthetic import make_beating_video
 from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
 from echoflow_torch.ops import _build
@@ -112,22 +129,24 @@ def top_kernels(kernels, n=12):
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
 
 
-def profile_train(out_path=None):
+def profile_train(out_path=None, compute_dtype="fp32", remat=False):
     """One full-width fused train step under the profiler."""
     from echoflow_torch.ops import warp_kernel as wk
     from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_train_step,
                                            prefetch_to_device)
     from train_clasfv_torch import synthetic_batches
 
-    cfg = TrainConfig()
+    cfg = TrainConfig(compute_dtype={"fp32": torch.float32,
+                                     "bf16": torch.bfloat16}[compute_dtype])
     state = create_train_state(0, cfg, device="cuda")
     batches = list(prefetch_to_device(
         synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 4, seed=0),
         "cuda"))
-    step = make_train_step(fused_ota=True)
+    step = make_train_step(fused_ota=True, remat=remat)
     for batch in batches[:2]:
         state, _ = step(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     launches0 = (wk.warp_forward.launches, wk.warp_image_grad.launches,
                  wk.warp_coord_grad.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -135,6 +154,7 @@ def profile_train(out_path=None):
         state, metrics = step(state, batches[2])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
     assert np.isfinite(float(metrics["loss"]))
     launches = [b - a for a, b in zip(launches0, (wk.warp_forward.launches,
                                                   wk.warp_image_grad.launches,
@@ -149,8 +169,8 @@ def profile_train(out_path=None):
                        "us_per_launch": ms * 1e3 / max(count, 1)}
     result = {
         "card": nvidia_smi_line(), "mode": "train", "batch": list(batches[0]["video"].shape),
-        "dtype": "float32", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "dtype": compute_dtype, "remat": remat, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "peak_gib": peak / 2**30,
         "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
         "warp_kernels": warp, "top_kernels_ms": top_kernels(kernels),
         "syncs_per_step": sum(syncs.values()), "sync_sites": dict(syncs),
@@ -218,12 +238,65 @@ def profile_clips(chunk, out_path=None):
             json.dump(dict(result, kernels_ms=kernels), f, indent=1)
 
 
+STUDY_EVAL_BATCHES = 16
+
+
+def evaluate_checkpoints(paths, out_path=None):
+    """The bf16 study's evaluation (see the module docstring): held-out
+    loss and ED/ES Dice of each checkpoint, then the engine's bf16 and
+    mixed masks against fp32's on the first checkpoint's weights."""
+    from echoflow_torch.train.checkpoint import load_checkpoint
+    from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_eval_step,
+                                           prefetch_to_device)
+    from train_clasfv_torch import synthetic_batches
+
+    host = synthetic_batches(4, 32, 112, STUDY_EVAL_BATCHES, seed=999_999,
+                             pool_seed_base=90_000_000)
+    batches = list(prefetch_to_device(host, "cuda"))
+    state = create_train_state(0, TrainConfig(), device="cuda")
+    eval_step = make_eval_step()
+    metrics = {}
+    for path in paths:
+        state.model.load_state_dict(load_checkpoint(path)["model"])
+        sums = {"loss": 0.0, "ed_dice": 0.0, "es_dice": 0.0}
+        for batch in batches:
+            m = eval_step(state, batch)
+            for k in sums:
+                sums[k] += float(m[k])
+        metrics[path] = {("val_loss" if k == "loss" else k): v / len(batches)
+                         for k, v in sums.items()}
+    weights = load_checkpoint(paths[0])["model"]
+    videos = main_path_videos()
+    masks = {}
+    for name, kw in (("fp32", dict(dtype=torch.float32)), ("bf16", dict(dtype=torch.bfloat16)),
+                     ("mixed", dict(dtype=torch.float32, backbone_dtype=torch.bfloat16))):
+        engine = VideoSegmenter(weights, **kw)
+        masks[name] = list(engine.segment_videos(videos, num_clips=5, step=1,
+                                                 fuse_method="simple"))
+    result = {"card": nvidia_smi_line(), "eval_batches": len(batches), "metrics": metrics,
+              "masks": {"foreground_fp32": float(np.mean([m.mean() for m in masks["fp32"]])),
+                        **{f"{name}_vs_fp32": [float((a != b).mean())
+                                               for a, b in zip(masks[name], masks["fp32"])]
+                           for name in ("bf16", "mixed")}}}
+    print(json.dumps(result))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkpoints", nargs="*",
+                    help="evaluate these CLAS-FV checkpoints instead (the bf16 study)")
     ap.add_argument("--videos", type=int, default=3)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--train", action="store_true",
                     help="profile one full-width fused train step instead")
+    ap.add_argument("--compute-dtype", choices=("fp32", "bf16"), default="fp32",
+                    help="with --train: the model's compute dtype")
+    ap.add_argument("--remat", action="store_true",
+                    help="with --train: the rematerialized step")
     ap.add_argument("--clips", type=int, default=None, metavar="CHUNK",
                     help="profile chip_smoke.py phase 7's ClipForward (clips a chunk) "
                          "and rollouts instead")
@@ -232,8 +305,10 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs an NVIDIA GPU")
     _build.build_all()
+    if args.checkpoints:
+        return evaluate_checkpoints(args.checkpoints, args.out)
     if args.train:
-        return profile_train(args.out)
+        return profile_train(args.out, args.compute_dtype, args.remat)
     if args.clips:
         return profile_clips(args.clips, args.out)
     engine = VideoSegmenter(smoke_weights(), dtype=getattr(torch, args.dtype))

@@ -379,6 +379,22 @@ def test_train_step_on_the_card_matches_the_cpu_port(cuda):
             assert float(gc[k].norm()) <= 1e-4 * top, k
 
 
+@pytest.mark.cuda
+def test_bf16_train_step_on_the_card_is_as_close_to_float64_as_the_cpu_port(cuda):
+    """The bf16 fused step (`TrainConfig.compute_dtype`) at (2, 3, 8, 32, 32)
+    on the card and on the CPU from the same seeded state with damped
+    residual branches (`chip_smoke.damped_residuals`, so that bf16 is well
+    conditioned) and batch, each measured from the CPU port's float64
+    step: `chip_smoke.py` phase 11c's bars (the card's gradients and each
+    leaf at most 2x as far as the CPU's, the gradients at most 0.5 and the
+    loss 1e-2 from float64, the stem's statistics within 5e-4 of the
+    CPU's); it raises if one fails."""
+    from chip_smoke import BF16_GRAD_ABS, phase_bf16_vs_float64
+
+    out = phase_bf16_vs_float64()
+    assert out["card"]["grad_rel"] <= BF16_GRAD_ABS
+
+
 def _no_sync(fn):
     """fn() under torch.cuda.set_sync_debug_mode("error"): any call in it
     that waits for the device raises."""
@@ -414,17 +430,23 @@ def test_folded_forward_chunk_makes_no_host_sync(cuda):
 
 
 @pytest.mark.cuda
-def test_train_step_makes_no_host_sync(cuda):
+@pytest.mark.parametrize("compute_dtype,remat", [(torch.float32, False),
+                                                 (torch.bfloat16, False),
+                                                 (torch.float32, True),
+                                                 (torch.bfloat16, True)],
+                         ids=["fp32", "bf16", "fp32-remat", "bf16-remat"])
+def test_train_step_makes_no_host_sync(cuda, compute_dtype, remat):
     """A whole fused train step (forward, loss, backward, Adam) at batch 2 x
-    3 x 32 x 112 x 112, after a first step: no call waits for the device."""
+    3 x 32 x 112 x 112, after a first step: no call waits for the device,
+    in bf16 and with remat too."""
     from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_train_step,
                                            prefetch_to_device)
     from train_clasfv_torch import synthetic_batches
 
-    cfg = TrainConfig(batch_size=2)
+    cfg = TrainConfig(batch_size=2, compute_dtype=compute_dtype)
     state = create_train_state(0, cfg, device="cuda")
     batches = list(prefetch_to_device(synthetic_batches(2, 32, 112, 2, seed=0), "cuda"))
-    step = make_train_step(fused_ota=True)
+    step = make_train_step(fused_ota=True, remat=remat)
     state, _ = step(state, batches[0])
     state, metrics = _no_sync(lambda: step(state, batches[1]))
     assert np.isfinite(float(metrics["loss"])) and state.step == 2

@@ -298,5 +298,15 @@ def test_train_clasfv_torch_trains_on_an_echonet_root(tmp_path):
     ck = torch.load(str(out) + ".last", weights_only=True)
     assert ck["step"] == 1 and np.isfinite(ck["extra"]["val_loss"])
     assert out.exists()
-    with pytest.raises(SystemExit, match="bf16"):
-        train_clasfv_torch.main(["--data", str(data), "--compute-dtype", "bf16"])
+    # bf16 on the same root: fp32 parameters in its checkpoint, which resumes.
+    args16 = ["--data", str(data), "--device", "cpu", "--epoch-subsample", "2", "--steps", "2",
+              "--image-size", "24", "--clip-length", "8", "--batch-size", "2",
+              "--out", str(tmp_path / "ck16.pth"), "--compute-dtype", "bf16"]
+    state = train_clasfv_torch.main(args16 + ["--epochs", "1"])
+    assert state.step == 1 and state.model.compute_dtype == torch.bfloat16
+    ck16 = torch.load(str(tmp_path / "ck16.pth.last"), weights_only=True)
+    assert all(v.dtype == torch.float32 for v in ck16["model"].values()
+               if v.is_floating_point())
+    state = train_clasfv_torch.main(args16 + ["--epochs", "2", "--resume",
+                                              str(tmp_path / "ck16.pth.last")])
+    assert state.step == 2

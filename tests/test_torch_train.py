@@ -386,8 +386,20 @@ def test_train_clasfv_torch_runs_and_resumes(tmp_path):
     state = cli.main(args[:4] + ["2"] + args[5:] + ["--resume", out])
     assert state.step == 4
     assert ck.load_checkpoint(out)["extra"]["val_loss"] <= best["extra"]["val_loss"]
-    with pytest.raises(SystemExit, match="ROADMAP"):   # bf16 training waits for its study
-        cli.main(args + ["--compute-dtype", "bf16"])
+    # --compute-dtype bf16 runs the model in bf16; its checkpoint holds fp32
+    # parameters, running statistics and Adam moments, and resumes.
+    out16 = str(tmp_path / "ck16.pth")
+    args16 = args[:-1] + [out16, "--compute-dtype", "bf16"]
+    assert cli.main(args16).model.compute_dtype == torch.bfloat16
+    ck16 = ck.load_checkpoint(out16 + ".last")
+    assert ck16["step"] == 2 and np.isfinite(ck16["extra"]["val_loss"])
+    assert all(v.dtype == torch.float32 for v in ck16["model"].values()
+               if v.is_floating_point())
+    assert all(v.dtype == torch.float32 for st in ck16["optimizer"]["state"].values()
+               for k, v in st.items() if k != "step")
+    assert cli.main(args16[:4] + ["2"] + args16[5:] + ["--resume", out16]).step == 4
+    state32, _ = ck.restore_train_state(out16, create_train_state(0, CFG, device="cpu"))
+    assert state32.step == 4 and state32.model.compute_dtype is None   # into an fp32 state
     with pytest.raises(SystemExit, match="--data"):     # neither data source
         cli.main(args[1:])
     # --data reads an EchoNet-Dynamic root (tests/test_torch_echonet.py
