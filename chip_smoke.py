@@ -91,7 +91,23 @@ Phases (any failure raises and the script exits nonzero):
      statistics within 5e-4 of the CPU's; (d) phase 9a's one-rank NCCL group with the remat step:
      the collectives of a step, no wait; (e) the native host normalizer
      (`csrc/preprocess.cc`, built with the host compiler) bitwise the numpy
-     path on phase 4's videos, host times of both.
+     path on phase 4's videos, host times of both;
+ 12. graphed steps (`train/graph.py`, what `fit` runs on the card): for each
+     of fp32, fp32 with remat, bf16, bf16 with remat and the ed-or-es-only
+     recipe, 4 steps from phase 6's seed-0 state and batches, twice eagerly
+     and once graphed (a warm-up, a capture with its replay, two replays),
+     the LR dropping at update 2: the warm-up and a replay at phase 6's
+     bars (bf16: 1e-2 and 3e-2) against the eager step from the same
+     state and batch; after 4 steps the parameters and running statistics
+     at most 2x as far from the eager run's as two eager runs are apart,
+     `num_batches_tracked` equal, the LR of each update the schedule's;
+     launches zeroed just before each step and held at the recipe's, K1's
+     held at 0; K1-K4 by kernel name in a profiled replay; no wait in a
+     replay (sync mode "error"); the graphed eval step against the eager
+     one; eager and graphed step times, the capture, a replay's device
+     busy time and idle share, peak memory.
+     12f: `train_clasfv_torch.main` for 2 epochs of 3 steps, one train and
+     one eval graph a run.
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -101,7 +117,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -1468,6 +1486,411 @@ def phase_native_normalizer(videos):
     return {"build_s": build_s, "native_ms": times["native"], "numpy_ms": times["numpy"]}
 
 
+# Phase 12: the train and eval steps as CUDA graphs (`train/graph.py`,
+# echoflow's `jax.jit` of both), against the eager steps.
+GRAPH_VARIANTS = (("fp32", torch.float32, False, "clasfv"),
+                  ("fp32_remat", torch.float32, True, "clasfv"),
+                  ("bf16", torch.bfloat16, False, "clasfv"),
+                  ("bf16_remat", torch.bfloat16, True, "clasfv"),
+                  ("ed_es_only", torch.float32, False, "ed_es_only"))
+GRAPH_STEPS = 4        # the warm-up, the capture and its replay, two replays
+GRAPH_LR_DROP = 2      # the LR drops at update 2: between the second and third replays
+SPREAD_RATIO = 2.0     # graphed vs eager at most this x two eager runs apart
+MOVE_FLOOR = 1e-6      # ... or this share of the moves: two eager runs may agree bitwise
+EVAL_TOL = 1e-5        # the graphed eval step's metrics vs the eager one's (relative)
+TIMED_REPLAYS = 5
+# bf16's eager step is not repeatable to phase 6's bars. Two eager steps
+# from one (damped) state and batch, on an H100: all gradients 2.9e-3 to
+# 5.8e-3 apart, worst leaf 1.1e-2 to 1.3e-2. A planted fault reads more:
+# the label warps' image gradient (K3) dropped moves all gradients by
+# 1.0e-2 and the worst leaf by 0.61 (phase 6's note); the comb2 weight
+# gradient zeroed moves that leaf by 1.0.
+BF16_GRAD_TOL = 1e-2
+BF16_LEAF_TOL = 3e-2
+# The kernels a profiled replay counts by name: K1, K2, K3 (its scatter and
+# transpose, two a launch) and K4.
+KERNEL_NAMES = ("decoder_heads_kernel", "warp_forward_kernel", "warp_image_grad_kernel",
+                "warp_coord_grad_kernel")
+
+
+def recipe_steps(recipe, t):
+    """(train step factory taking `remat`, eval step factory, launches
+    (K2, K3, K4) of a train step, of an eval step) of a recipe at clip
+    length t, as its code implies.
+    Fused CLAS-FV: one K2 pair launch and two K4 a chain step, K3 from the
+    second chain step on (the first warps constant labels); its eval step
+    runs the reference schedule (OTA's two batched warps, T-1 chain warps).
+    Ed-or-es-only: OTA's two video warps for each clip set (K2 and K4 each),
+    and two single-label chains of T-1 warps (K3 from the second step)."""
+    from echoflow_torch.train.loop import make_ed_es_only_eval_step, make_ed_es_only_train_step
+
+    if recipe == "clasfv":
+        return (lambda remat: make_train_step(fused_ota=True, remat=remat), make_eval_step,
+                (t - 1, t - 2, 2 * (t - 1)), (2 + (t - 1), 0, 0))
+    return (lambda remat: make_ed_es_only_train_step(remat=remat), make_ed_es_only_eval_step,
+            (4 + 2 * (t - 1), 2 * (t - 2), 4 + 2 * (t - 1)), (4 + 2 * (t - 1), 0, 0))
+
+
+def _flat(tensors):
+    return torch.cat([t.detach().reshape(-1).double() for t in tensors])
+
+
+def _running_stats(model):
+    return [v for k, v in model.state_dict().items() if "running" in k]
+
+
+def _host_grads(model):
+    """The gradients as `_compare_steps` takes them, copied to the host in
+    their own dtype (fp32), so that the card holds nothing beside the step."""
+    return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def eager_twin(state, cfg):
+    """A new state holding copies of `state`'s parameters, buffers, Adam
+    state and update count: the eager step from exactly where `state`
+    stands."""
+    from echoflow_torch.train.loop import TrainState, make_optimizer
+
+    model = copy.deepcopy(state.model)
+    twin = TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
+                      schedule=state.schedule, step=state.step)
+    # A copy: `load_state_dict` keeps a tensor already on the right device.
+    twin.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    return twin
+
+
+def _trajectory(cfg, factory, batches, graph):
+    """GRAPH_STEPS train steps from the seed-0 state, eager or through
+    `graphed`: per step the loss, the launches (K2, K3, K4), the LR the
+    update applied (the optimizer's, read after the step) and the host ms;
+    the gradients after steps 1 and 3; the moves of the parameters and the
+    running statistics over the run; `num_batches_tracked`; the peak
+    allocated memory over steps 2-4 (eager) or over the capture and its
+    replay (graphed), and the memory reserved after the run (a graph's
+    pool keeps a step's activations). A graphed run also takes step 3 (a
+    replay) on two eager twins from the same state and batch
+    (`eager_twin`): their losses and gradients under "twins". bf16 runs
+    start from the seed-0
+    weights with `damped_residuals`: at the plain init a bf16 step is
+    chaotic, and two eager bf16 steps from one state and batch differ by
+    1.4e-2 in their gradients (cuDNN's and K3's run-to-run order,
+    renormalized by each BatchNorm); damped, 5.0e-3. Returns (state, step,
+    run)."""
+    from echoflow_torch.train.graph import graphed
+
+    state = create_train_state(0, cfg, device="cuda")
+    if cfg.compute_dtype == torch.bfloat16:
+        state.model.load_state_dict(damped_residuals(state.model.state_dict()))
+    p0, s0 = _flat(state.model.parameters()).cpu(), _flat(_running_stats(state.model)).cpu()
+    step = graphed(factory(), state) if graph else factory()
+    steps, twins, peak = [], [], 0
+    for i, batch in enumerate(batches[:GRAPH_STEPS]):
+        if graph and i == 2:
+            peak = torch.cuda.max_memory_allocated()   # over the capture and its replay
+            twins = [eager_twin(state, cfg) for _ in range(2)]
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec = dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(m["loss"]),
+                   launches=tuple(b - a for a, b in zip(before, _launch_counts())),
+                   lr=float(state.optimizer.param_groups[0]["lr"]))
+        if i in (0, 2):
+            rec["grads"] = _host_grads(state.model)
+        if twins:
+            rec["twins"] = []
+            for twin in twins:
+                twin, m_twin = factory()(twin, batch)
+                rec["twins"].append((float(m_twin["loss"]), _host_grads(twin.model)))
+            twins = []
+            torch.cuda.empty_cache()
+        steps.append(rec)
+    torch.cuda.empty_cache()
+    run = dict(steps=steps, peak_bytes=peak if graph else torch.cuda.max_memory_allocated(),
+               reserved_bytes=torch.cuda.memory_reserved(),
+               param_move=_flat(state.model.parameters()).cpu() - p0,
+               stats_move=_flat(_running_stats(state.model)).cpu() - s0,
+               tracked=sorted({int(v) for k, v in state.model.state_dict().items()
+                               if "num_batches" in k}))
+    return state, step, run
+
+
+def _move_dist(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def profile_replay(step, state, batch):
+    """One call of a graphed step under torch.profiler: wall ms, the
+    device's busy ms, and the launches of K1, K2, K3 (both its kernels)
+    and K4 by kernel name (KERNEL_NAMES)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, names = 0.0, collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CPU or \
+                evt.name.startswith("echoflow_torch."):
+            continue
+        busy += evt.device_time_total / 1e3
+        for short in KERNEL_NAMES:
+            if short in evt.name:
+                names[short] += 1
+    return wall, busy, tuple(names[n] for n in KERNEL_NAMES)
+
+
+def step_tolerances(dtype):
+    """The bars (all gradients, worst leaf) of a graphed step against the
+    eager step from the same state and batch: phase 6's in fp32, BF16_*_TOL
+    in bf16."""
+    if dtype == torch.bfloat16:
+        return {"grad_rel": BF16_GRAD_TOL, "leaf_rel": BF16_LEAF_TOL}
+    return {"grad_rel": GRAD_TOL, "leaf_rel": LEAF_TOL}
+
+
+def _graph_checks(name, res, want, want_eval):
+    """The failures of phase 12's checks on one variant's readings."""
+    bad = []
+    eager, _, graphed_run = res["runs"]
+    tols = step_tolerances(res["dtype"])
+    for label, c in (("step 1", res["warm_up"]), ("step 3", res["replay"])):
+        if not (c["loss_rel"] <= LOSS_TOL and c["grad_rel"] <= tols["grad_rel"]
+                and c["leaf_rel"] <= tols["leaf_rel"] and c["zero_leaf"] <= ZERO_LEAF):
+            bad.append(f"{label} vs the eager step from the same state")
+    for k, d in res["move_dist"].items():
+        if d > max(SPREAD_RATIO * res["move_spread"][k], MOVE_FLOOR):
+            bad.append(f"{k} {d:.2e} > {SPREAD_RATIO} x {res['move_spread'][k]:.2e}")
+    if graphed_run["tracked"] != eager["tracked"]:
+        bad.append("num_batches_tracked")
+    for r in (eager, graphed_run):
+        if [rec["lr"] for rec in r["steps"]] != res["want_lr"]:
+            bad.append("LR applied")
+        if any(rec["launches"] != want for rec in r["steps"]):
+            bad.append("launches a step")
+        if not all(np.isfinite(rec["loss"]) for rec in r["steps"]):
+            bad.append("loss not finite")
+    if res["profiled_launches"] != (0, want[0], 2 * want[1], want[2]):
+        bad.append(f"kernels by name in a replay {res['profiled_launches']}")
+    if res["k1_launches"] != 0:
+        bad.append(f"K1 launched {res['k1_launches']} times (the train steps run the plain "
+                   "decoder)")
+    if res["sync_error"] is not None:
+        bad.append(f"a replay waits: {res['sync_error']}")
+    if res["evals"] and any(e["rel"] > EVAL_TOL or e["launches"] != want_eval
+                            for e in res["evals"]):
+        bad.append("graphed eval step")
+    if bad:
+        raise AssertionError(f"graphed {name} step: {bad}")
+
+
+def phase_graphs():
+    """Phase 12: for each of fp32, fp32 with remat, bf16, bf16 with remat
+    and the ed-or-es-only recipe (fp32), GRAPH_STEPS steps from the seed-0
+    state (bf16: residuals damped, `_trajectory`) on phase 6's batches,
+    twice eagerly and once through `graphed`
+    (a warm-up, a capture with its replay, two replays), with the LR
+    dropping at update GRAPH_LR_DROP. Held against the eager step from
+    the same state and batch: the graphed step 1 (the warm-up) against the
+    first eager run's, and step 3 (a replay) against an eager twin of the
+    graphed state (two eager runs are far apart by step 3: K3's atomics,
+    amplified by Adam), at phase 6's bars in fp32 and BF16_GRAD_TOL and
+    BF16_LEAF_TOL in bf16 (`step_tolerances`; how far two eager steps
+    from one state are apart is printed beside them: the two eager runs
+    at step 1, a second twin at step 3). After the run its parameters
+    and running statistics at most SPREAD_RATIO x as far from the eager
+    run's as the two eager runs are apart, and `num_batches_tracked`
+    equal; the LR each update applied equal to the schedule's; launches
+    zeroed just before each step and held at the recipe's
+    (`recipe_steps`), and K1's zeroed at the variant's start and held at 0
+    through all of it. Then on the graphed state the median of TIMED_REPLAYS
+    unprofiled replays, one replay under the profiler (K1-K4 by kernel
+    name at the step's launches; device busy and idle share) and
+    one under sync debug mode "error"; for fp32 and ed-or-es-only the
+    graphed eval step (warm-up, capture, replay) against the eager one
+    within EVAL_TOL."""
+    from echoflow_torch.train.graph import graphed
+    from echoflow_torch.train.loop import lr_schedule
+    from train_clasfv_torch import synthetic_ed_es_batches
+
+    base = TrainConfig(lr_drop_step=GRAPH_LR_DROP)
+    t = base.clip_length
+    hosts = {"clasfv": list(synthetic_batches(base.batch_size, t, base.image_size[0],
+                                              GRAPH_STEPS + 1, seed=0)),
+             "ed_es_only": list(synthetic_ed_es_batches(base.batch_size, t, base.image_size[0],
+                                                        GRAPH_STEPS + 1, seed=0))}
+    sched = lr_schedule(base)
+    want_lr = [float(torch.tensor(sched(k), dtype=torch.float32)) for k in range(GRAPH_STEPS)]
+    out = {}
+    for name, dtype, remat, recipe in GRAPH_VARIANTS:
+        t_variant = time.perf_counter()
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        train_f, eval_f, want, want_eval = recipe_steps(recipe, t)
+        factory = functools.partial(train_f, remat)
+        decoder_heads.launches = 0
+        batches = list(prefetch_to_device(iter(hosts[recipe]), "cuda"))
+        runs = []
+        for graph in (False, False, True):
+            state, step, run = _trajectory(cfg, factory, batches, graph)
+            runs.append(run)
+            if not graph:
+                del state, step
+                torch.cuda.empty_cache()
+        eager, eager2, graphed_run = runs
+        g1, g3 = graphed_run["steps"][0], graphed_run["steps"][2]
+        warm_up = _compare_steps(g1["loss"], g1["grads"], eager["steps"][0]["loss"],
+                                 eager["steps"][0]["grads"])
+        replay = _compare_steps(g3["loss"], g3["grads"], *g3["twins"][0])
+        twins_apart = _compare_steps(*g3["twins"][1], *g3["twins"][0])
+        apart = {i: _compare_steps(eager2["steps"][i]["loss"], eager2["steps"][i]["grads"],
+                                   eager["steps"][i]["loss"], eager["steps"][i]["grads"])
+                 for i in (0, 2)}
+        dist = {k: _move_dist(graphed_run[k], eager[k]) for k in ("param_move", "stats_move")}
+        spread = {k: _move_dist(eager2[k], eager[k]) for k in ("param_move", "stats_move")}
+        for r in runs:
+            for rec in r["steps"]:
+                rec.pop("grads", None)
+                rec.pop("twins", None)
+            del r["param_move"], r["stats_move"]
+        # The graphed state: replays timed, profiled, and under sync mode "error".
+        timed = []
+        for i in range(TIMED_REPLAYS):
+            t0 = time.perf_counter()
+            step(state, batches[i % GRAPH_STEPS])
+            torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, named = profile_replay(step, state, batches[0])
+        _, error = sync_error(lambda: step(state, batches[1]))
+        evals = None
+        if name in ("fp32", "ed_es_only"):
+            ev_step = eval_f()
+            ref = {k: float(v) for k, v in ev_step(state, batches[GRAPH_STEPS]).items()}
+            g_eval = graphed(ev_step, state)
+            evals = []
+            for _ in range(3):
+                before = _launch_counts()
+                m = {k: float(v) for k, v in g_eval(state, batches[GRAPH_STEPS]).items()}
+                counts = tuple(b - a for a, b in zip(before, _launch_counts()))
+                evals.append(dict(rel=max(abs(m[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                                          for k in ref), launches=counts))
+            del g_eval
+        k1_launches = decoder_heads.launches
+        del state, step
+        torch.cuda.empty_cache()
+        eager_ms = [rec["ms"] for r in (eager, eager2) for rec in r["steps"][1:]]
+        res = out[name] = dict(
+            dtype=dtype, k1_launches=k1_launches,
+            warm_up=warm_up, replay=replay, eager_apart=apart, twins_apart=twins_apart,
+            move_dist=dist,
+            move_spread=spread, runs=runs, want_lr=want_lr,
+            eager_median_ms=statistics.median(eager_ms), eager_ms=eager_ms,
+            graphed_median_ms=statistics.median(timed), timed_ms=timed,
+            capture_ms=graphed_run["steps"][1]["ms"], replay_wall_ms=wall,
+            replay_busy_ms=busy, replay_idle_share=1.0 - busy / wall,
+            profiled_launches=named, sync_error=error, evals=evals,
+            seconds=time.perf_counter() - t_variant)
+        log(f"graphs ({name}): graphed vs eager from the same state and batch: step 1 "
+            f"(warm-up) loss {warm_up['loss_rel']:.2e}, gradients {warm_up['grad_rel']:.2e}, "
+            f"worst leaf {warm_up['leaf_rel']:.2e}; step 3 (a replay, vs an eager twin) loss "
+            f"{replay['loss_rel']:.2e}, gradients {replay['grad_rel']:.2e}, worst leaf "
+            f"{replay['leaf_rel']:.2e}; two eager steps from one state and batch: step 1 "
+            f"gradients {apart[0]['grad_rel']:.2e}, worst leaf {apart[0]['leaf_rel']:.2e}, step 3 "
+            f"(the twins) {twins_apart['grad_rel']:.2e}, {twins_apart['leaf_rel']:.2e} "
+            f"(information; limits: loss {LOSS_TOL:.0e}, gradients "
+            f"{step_tolerances(dtype)['grad_rel']:.0e}, worst leaf "
+            f"{step_tolerances(dtype)['leaf_rel']:.0e}); the two eager runs at step 3 "
+            f"(diverged by then) loss {apart[2]['loss_rel']:.2e}, gradients "
+            f"{apart[2]['grad_rel']:.2e} (information)")
+        log(f"  after {GRAPH_STEPS} steps: parameter moves {dist['param_move']:.2e} from the "
+            f"eager run's, two eager runs {spread['param_move']:.2e}; running statistics "
+            f"{dist['stats_move']:.2e}, eager runs {spread['stats_move']:.2e} (limit "
+            f"{SPREAD_RATIO}x); num_batches_tracked {graphed_run['tracked']} (eager "
+            f"{eager['tracked']}); LR applied {[r['lr'] for r in graphed_run['steps']]} "
+            f"(schedule {want_lr}, eager {[r['lr'] for r in eager['steps']]})")
+        log(f"  launches (K2, K3, K4) a step: graphed "
+            f"{[r['launches'] for r in graphed_run['steps']]}, eager "
+            f"{[r['launches'] for r in eager['steps']]}, implied {want}; in a profiled replay "
+            f"by name (K1, K2, K3 x2, K4) {named}; K1 in the variant {k1_launches}; waits in a "
+            f"replay under sync mode 'error': {0 if error is None else error}")
+        log(f"  step ms (host clock, unprofiled): eager median {res['eager_median_ms']:.1f} "
+            f"{[round(x, 1) for x in eager_ms]}, graphed median {res['graphed_median_ms']:.1f} "
+            f"{[round(x, 1) for x in timed]}; capture + first replay {res['capture_ms']:.1f}, "
+            f"warm-up {graphed_run['steps'][0]['ms']:.1f}; profiled replay wall {wall:.1f}, "
+            f"device busy {busy:.1f} (idle {res['replay_idle_share']:.1%}); peak allocated "
+            f"eager {eager['peak_bytes'] / 2**30:.3f} GiB, in the capture "
+            f"{graphed_run['peak_bytes'] / 2**30:.3f} GiB; reserved after the run eager "
+            f"{eager['reserved_bytes'] / 2**30:.3f} GiB, graphed "
+            f"{graphed_run['reserved_bytes'] / 2**30:.3f} GiB"
+            + (f"; eval graphed vs eager rel {[e['rel'] for e in evals]} (limit "
+               f"{EVAL_TOL:.0e}), launches {[e['launches'] for e in evals]}, implied {want_eval}"
+               if evals else "") + f"; {res['seconds']:.1f} s")
+        _graph_checks(name, res, want, want_eval)
+    return out
+
+
+TRAINER_STEPS, TRAINER_EPOCHS = 3, 2
+
+
+def phase_graphed_trainer():
+    """Phase 12f: `train_clasfv_torch.main` on the card at full width,
+    TRAINER_EPOCHS epochs of TRAINER_STEPS steps with the LR drop after the
+    first epoch: it makes its graphed steps once a run (`fit` takes them
+    each epoch), so one train graph and one eval graph, replayed across
+    the epochs; K2-K4 launches zeroed just before and held at the recipe's
+    for every train and validation step, K1's zeroed with them and held at
+    0; the LR in force after the run is the dropped one; the last
+    checkpoint holds every update."""
+    import train_clasfv_torch
+    from echoflow_torch.train import checkpoint as ck
+    from echoflow_torch.train import graph as graph_module
+    from echoflow_torch.train import loop
+
+    made = []
+
+    def recorded(step_fn, state):
+        made.append(graph_module.graphed(step_fn, state))
+        return made[-1]
+
+    t = TrainConfig().clip_length
+    _, _, want, want_eval = recipe_steps("clasfv", t)
+    val_steps = max(2, TRAINER_STEPS // 8)   # the trainer's synthetic validation split
+    loop.graphed = recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "ck.pth")
+            _zero_launch_counts()
+            decoder_heads.launches = 0
+            t0 = time.perf_counter()
+            state = train_clasfv_torch.main(
+                ["--synthetic", "--steps", str(TRAINER_STEPS), "--epochs", str(TRAINER_EPOCHS),
+                 "--lr-drop-epoch", "1", "--log-every", "1", "--out", out])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts, k1_launches = _launch_counts(), decoder_heads.launches
+            saved_step = ck.load_checkpoint(out + ".last")["step"]
+    finally:
+        loop.graphed = graph_module.graphed
+    train_calls, eval_calls = TRAINER_EPOCHS * TRAINER_STEPS, TRAINER_EPOCHS * val_steps
+    implied = tuple(train_calls * a + eval_calls * b for a, b in zip(want, want_eval))
+    graphs = [(len(g.graphs), sum(e.replays for e in g.graphs.values())) for g in made]
+    lr = float(state.optimizer.param_groups[0]["lr"])
+    log(f"graphs (trainer): train_clasfv_torch --synthetic --steps {TRAINER_STEPS} --epochs "
+        f"{TRAINER_EPOCHS} --lr-drop-epoch 1 in {seconds:.1f} s (data, captures and checkpoints "
+        f"included); graphed steps made {len(made)}, (graphs, replays) each {graphs}, want "
+        f"[(1, {train_calls - 1}), (1, {eval_calls - 1})]; launches (K2, K3, K4) {counts}, "
+        f"implied {implied}; K1 {k1_launches}; LR after the run {lr}; checkpoint step "
+        f"{saved_step}")
+    if graphs != [(1, train_calls - 1), (1, eval_calls - 1)] or counts != implied \
+            or k1_launches != 0 or lr != float(torch.tensor(1e-5)) or saved_step != train_calls:
+        raise AssertionError("the trainer's graphed steps: captures, launches, LR or steps "
+                             "differ from the run's")
+    return {"seconds": seconds, "graphs": graphs, "launches": counts, "k1_launches": k1_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1484,19 +1907,32 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    k1 = phase_k1()
-    launches, main_run = phase_main_path()
-    warp = phase_warp()
-    train = phase_train()
-    clips = phase_clips()
-    cli = phase_cli()
-    dp = {"train": phase_dp_train(), "engine": phase_dp_engine(main_run)}
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    k1 = timed("3", phase_k1)
+    launches, main_run = timed("4", phase_main_path)
+    warp = timed("5", phase_warp)
+    train = timed("6", phase_train)
+    clips = timed("7", phase_clips)
+    cli = timed("8", phase_cli)
+    dp = {"train": timed("9a", phase_dp_train), "engine": timed("9b", phase_dp_engine, main_run)}
     del main_run
-    dp["dryrun"] = phase_dp_dryrun()
-    camus = phase_camus()
-    precision = {"steps": phase_precision_steps(), "remat_vs_plain": phase_remat_vs_plain(),
-                 "bf16_vs_float64": phase_bf16_vs_float64(), "remat_dp": phase_remat_dp(),
-                 "native_normalizer": phase_native_normalizer(main_path_videos())}
+    dp["dryrun"] = timed("9c", phase_dp_dryrun)
+    camus = timed("10", phase_camus)
+    precision = {"steps": timed("11a", phase_precision_steps),
+                 "remat_vs_plain": timed("11b", phase_remat_vs_plain),
+                 "bf16_vs_float64": timed("11c", phase_bf16_vs_float64),
+                 "remat_dp": timed("11d", phase_remat_dp),
+                 "native_normalizer": timed("11e", phase_native_normalizer, main_path_videos())}
+    graphs = timed("12", phase_graphs)
+    trainer = timed("12f", phase_graphed_trainer)
+    log(f"seconds by phase: {seconds}")
 
     main_variant = k1[False]
     kernels = [{
@@ -1525,6 +1961,12 @@ def main():
         # Phase 9b: the engine sharded over two replicas; phase 10: none implied.
         "dp_launches": dp["engine"]["launches"],
         "camus_launches": camus["launches"]["decoder_heads"],
+        # Phase 12 and 12f, read from the counter (each replay adds the
+        # launches its capture made) and, in one profiled replay a
+        # variant, by kernel name; held at 0 (training runs the plain decoder).
+        "graph_launches": {v: r["k1_launches"] for v, r in graphs.items()},
+        "graph_launches_by_name": {v: r["profiled_launches"][0] for v, r in graphs.items()},
+        "trainer_launches": trainer["k1_launches"],
     }]
     replaces = {"warp_forward": "echoflow/ops/pallas/warp_kernel.py:67",
                 "warp_image_grad": "echoflow/ops/pallas/warp_kernel.py:81",
@@ -1547,6 +1989,19 @@ def main():
             "camus_launches": camus["launches"][name],
             "precision_launches": {v: r["launches"][name]
                                    for v, r in precision["steps"].items()},
+            # Phase 12: the graphed step's launches, 4 steps of each variant
+            # (the warm-up, the capture's replay, two replays), from the
+            # counter (each replay adds the launches its capture made); by
+            # kernel name in one profiled replay (K3: two kernels a launch).
+            "graph_launches": {v: sum(rec["launches"][list(replaces).index(name)]
+                                      for rec in r["runs"][2]["steps"])
+                               for v, r in graphs.items()},
+            "graph_launches_by_name": {
+                v: r["profiled_launches"][1 + list(replaces).index(name)]
+                for v, r in graphs.items()},
+            # Phase 12f: the trainer's run (graphed train and eval steps),
+            # from the counter.
+            "trainer_launches": trainer["launches"][list(replaces).index(name)],
         })
     # Phase 7: K2 in the bilinear rollouts of infer/propagate.py.
     next(k for k in kernels if k["name"] == "warp_forward").update(
@@ -1557,7 +2012,10 @@ def main():
         f"{dp['train']['syncs_per_step']}; dryrun {dp['dryrun']['seconds']:.1f} s; remat DP "
         f"step collectives {precision['remat_dp']['collectives']}; step ms (median) and peak "
         f"GiB: " + ", ".join(f"{k} {v['median_ms']:.1f} / {v['peak_bytes'] / 2**30:.3f}"
-                             for k, v in precision["steps"].items()) + f" ({smi})")
+                             for k, v in precision["steps"].items()) + "; graphed steps, "
+        f"median ms eager / graphed: " + ", ".join(
+            f"{k} {v['eager_median_ms']:.1f} / {v['graphed_median_ms']:.1f}"
+            for k, v in graphs.items()) + f" ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

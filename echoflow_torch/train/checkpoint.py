@@ -106,13 +106,29 @@ def load_jax_checkpoint(path: str) -> dict:
     return out
 
 
+def _place_adam_steps(opt):
+    """A capturable Adam (`loop.make_optimizer` on the card) keeps its
+    update counts on its parameters' device, whatever device the
+    checkpoint was written on."""
+    for group in opt.param_groups:
+        if group["capturable"]:
+            for p in group["params"]:
+                st = opt.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
+
+
 def restore_train_state(path: str, state):
     """Load a checkpoint into `state` (a `TrainState` from
     `create_train_state`, whose model and optimizer it overwrites in place)
     for reproducible resume. Reads the port's own checkpoints and
     `echoflow` `.pkl` ones (the latter carry a jax RNG key, which has no
-    torch counterpart: the generator is left as it is). Returns
-    (state, extra)."""
+    torch counterpart: the generator is left as it is). The optimizer
+    keeps its own LR and `capturable` (a float on the CPU, a tensor on the
+    card; the schedule sets the value of each update), so a checkpoint
+    moves between the CPU and the card. Adam's state tensors are new ones:
+    a CUDA graph captured before the restore refuses to run
+    (`train/graph.py`). Returns (state, extra)."""
     device = next(state.model.parameters()).device
     if str(path).endswith(".pkl"):
         ck = load_jax_checkpoint(path)
@@ -126,11 +142,17 @@ def restore_train_state(path: str, state):
                     "exp_avg": ck["exp_avg"][name].to(device).clone(),
                     "exp_avg_sq": ck["exp_avg_sq"][name].to(device).clone(),
                 }
+            _place_adam_steps(opt)
         state.step = ck["step"]
         return state, ck["extra"]
     ck = load_checkpoint(path)
     state.model.load_state_dict(ck["model"])
-    state.optimizer.load_state_dict(ck["optimizer"])
+    opt = state.optimizer
+    own = [{k: g[k] for k in ("lr", "capturable")} for g in opt.param_groups]
+    opt.load_state_dict(ck["optimizer"])
+    for group, keep in zip(opt.param_groups, own):
+        group.update(keep)
+    _place_adam_steps(opt)
     state.step = int(ck["step"])
     if ck.get("rng") is not None and state.generator is not None:
         state.generator.set_state(ck["rng"])

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from echoflow_torch.models.r2plus1d import create_model, frozen_running_stats, sync_batchnorm
 from echoflow_torch.parallel.mesh import shard_batch
+from echoflow_torch.train.graph import graphed
 from echoflow_torch.train.losses import (
     clasfv_total_loss,
     clasfv_total_loss_fused,
@@ -97,8 +98,16 @@ def lr_schedule(cfg: TrainConfig):
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
     """`optax.adam`: betas (0.9, 0.999), eps 1e-8 outside the square root,
     no eps_root, no weight decay. The LR is set per update from the
-    schedule."""
-    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    schedule. On the card Adam is capturable (its step count and bias
+    correction on the device) and its LR a 0-d float32 tensor there, so a
+    CUDA graph of the step (`train/graph.py`) reads each update's LR from
+    it; on the CPU the LR is a float."""
+    params = list(params)
+    device = params[0].device
+    if device.type != "cuda":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(params, lr=torch.full((), cfg.lr, device=device),
+                            betas=(0.9, 0.999), eps=1e-8, capturable=True)
 
 
 def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState:
@@ -148,15 +157,23 @@ def _cpu_conv_backend(model):
 def _apply_update(state: TrainState, total):
     """Backward and one Adam update at the schedule's LR. Like optax, every
     parameter is updated: one the loss does not reach (the unused Kinetics
-    fc) gets a zero gradient, so its Adam state exists and stays 0."""
+    fc) gets a zero gradient, so its Adam state exists and stays 0.
+
+    On the card the gradients stay the same tensors from step to step
+    (zeroed in place; the backward adds into them), as a CUDA graph of the
+    step needs. A tensor LR is written here, except while a graph is
+    captured: its wrapper writes it before each replay (`train/graph.py`)."""
     opt = state.optimizer
     with record_function("echoflow_torch.train.backward"):
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=not total.is_cuda)
         total.backward()
     with record_function("echoflow_torch.train.optimizer"):
         lr = state.schedule(state.step)
         for group in opt.param_groups:
-            group["lr"] = lr
+            if not isinstance(group["lr"], torch.Tensor):
+                group["lr"] = lr
+            elif not (group["lr"].is_cuda and torch.cuda.is_current_stream_capturing()):
+                group["lr"].fill_(lr)
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -333,20 +350,35 @@ def prefetch_to_device(batch_iterator, device, depth: int = 2):
         yield queue.popleft()
 
 
+def compiled_steps(state: TrainState, step_factory=None, eval_step_factory=None):
+    """(train_step, eval_step) of the recipe (`step_factory`, default
+    `make_train_step`; `eval_step_factory`, default `make_eval_step`) as
+    `fit` runs them for `state`: on the card in one process, each as CUDA
+    graphs (`graph.graphed`), as echoflow runs both under `jax.jit`; on the
+    CPU and under data parallelism, the eager steps."""
+    train_step = (step_factory or make_train_step)()
+    eval_step = (eval_step_factory or make_eval_step)()
+    if next(state.model.parameters()).is_cuda and state.replica is None \
+            and state.group is None:
+        return graphed(train_step, state), graphed(eval_step, state)
+    return train_step, eval_step
+
+
 def fit(state: TrainState, train_batches, eval_batches=None, log_every: int = 50,
-        log_fn=print, metrics_logger=None, prefetch_depth: int = 2, step_factory=None,
-        eval_step_factory=None):
+        log_fn=print, metrics_logger=None, prefetch_depth: int = 2, steps=None):
     """Epoch runner over iterables of host batches (dicts of numpy arrays
-    whose leading axis is the batch) on the model's device. `step_factory`
-    selects the recipe's train step (default `make_train_step`),
-    `eval_step_factory` its eval step (default `make_eval_step`). Every
+    whose leading axis is the batch) on the model's device. `steps` is the
+    pair (train step, eval step) that it runs, from `compiled_steps`
+    (default: `compiled_steps(state)`, the fused CLAS-FV recipe; a caller
+    that runs `fit` once an epoch makes them once a run, so an epoch does
+    not capture its graphs again). Every
     `log_every` steps the metrics are read, logged (and written to
     `metrics_logger`, a `utils.metrics_log.MetricsLogger`, at the update
     count) and appended to the history; with `eval_batches`, one validation
     pass runs on the final state and its batch-mean metrics are appended
     with an ``eval_`` prefix. Returns (state, history)."""
     device = next(state.model.parameters()).device
-    train_step = (step_factory or make_train_step)()
+    train_step, eval_step = steps or compiled_steps(state)
 
     def record(m, line):
         history.append(m)
@@ -361,7 +393,6 @@ def fit(state: TrainState, train_batches, eval_batches=None, log_every: int = 50
             record({k: float(v) for k, v in metrics.items()}, f"step {i}: ")
 
     if eval_batches is not None:
-        eval_step = (eval_step_factory or make_eval_step)()
         sums: dict = {}
         count = 0
         for batch in prefetch_to_device(eval_batches, device, prefetch_depth):
@@ -447,5 +478,5 @@ def fit_on_mesh(state: TrainState, train_batches, eval_batches=None, group=None,
                None if eval_batches is None else _sharded(eval_batches, rank, world),
                log_every=log_every, log_fn=log_fn if lead else (lambda line: None),
                metrics_logger=metrics_logger if lead else None,
-               prefetch_depth=prefetch_depth, step_factory=step_factory,
-               eval_step_factory=eval_step_factory)
+               prefetch_depth=prefetch_depth,
+               steps=compiled_steps(state, step_factory, eval_step_factory))

@@ -27,7 +27,11 @@ in it that waited for the device, by the line that made them.
 (`TrainConfig.compute_dtype`), `--remat` the rematerialized one, whose
 forward runs again in the backward under the range
 `echoflow_torch.train.recompute`; `peak_gib` is the step's peak allocated
-memory.
+memory. `graphed` is the same step as CUDA graphs (`train/graph.py`, what
+`fit` runs on the card): after its warm-up and capture, a replay's wall
+time unprofiled and profiled, its device busy time and idle share, and
+K2-K4's launches by kernel name (a replay fires no range, so the split by
+layer is the eager step's).
 
 With --clips CHUNK it profiles `chip_smoke.py` phase 7's workload: one
 `ClipForward` call (fp32, with the motion head) on 16 full-width clips in
@@ -160,6 +164,7 @@ def profile_train(out_path=None, compute_dtype="fp32", remat=False):
                                                   wk.warp_image_grad.launches,
                                                   wk.warp_coord_grad.launches))]
     _, syncs = count_syncs(lambda: step(state, batches[3]))
+    graph = profile_graphed_step(state, make_train_step(fused_ota=True, remat=remat), batches)
     layers, kernels = split_device_time(prof, TRAIN_KERNELS, "train.backward")
     busy_ms = sum(kernels.values())
     warp = {}
@@ -173,12 +178,42 @@ def profile_train(out_path=None, compute_dtype="fp32", remat=False):
         "device_idle_share": 1.0 - busy_ms / wall_ms, "peak_gib": peak / 2**30,
         "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
         "warp_kernels": warp, "top_kernels_ms": top_kernels(kernels),
-        "syncs_per_step": sum(syncs.values()), "sync_sites": dict(syncs),
+        "syncs_per_step": sum(syncs.values()), "sync_sites": dict(syncs), "graphed": graph,
     }
     print(json.dumps(result))
     if out_path:
         with open(out_path, "w") as f:
             json.dump(dict(result, kernels_ms=kernels), f, indent=1)
+
+
+def profile_graphed_step(state, step_fn, batches):
+    """The same step as CUDA graphs (`train/graph.graphed`): after its
+    warm-up and capture, one replay timed unprofiled and one under the
+    profiler, whose device time is the kernels of the graph (its ranges
+    do not fire on a replay): wall, device busy and idle share, and the
+    launches of K2, K3 and K4 by kernel name."""
+    from echoflow_torch.train.graph import graphed
+
+    step = graphed(step_fn, state)
+    for batch in batches[:2]:
+        step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batches[2])
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batches[3])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, kernels = split_device_time(prof, {})
+    busy_ms = sum(kernels.values())
+    launches = {short: sum(1 for evt in prof.events()
+                           if evt.device_type != torch.autograd.DeviceType.CPU
+                           and short in evt.name) for short in TRAIN_KERNELS}
+    return {"wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "warp_launches": launches}
 
 
 def profile_clips(chunk, out_path=None):

@@ -630,3 +630,212 @@ def test_camus_losses_on_the_card_match_the_plain_warp(cuda, monkeypatch):
             ref, ref_grad = run(fn)
         assert abs(value - ref) <= 1e-5 * abs(ref)
         assert float((grad - ref_grad).norm() / ref_grad.norm()) <= 5e-3
+
+
+# ------------------------------------------------------------------ graphed steps
+# `train/graph.graphed` at (2, 3, 8, 32, 32): a fused step launches K2, K3
+# and K4 7, 6 and 14 times (T - 1, T - 2, 2 (T - 1)).
+
+def _graph_setup(n_batches, batch_size=2, lr_drop_step=2, remat=False):
+    from echoflow_torch.train.loop import TrainConfig, make_train_step, prefetch_to_device
+    from train_clasfv_torch import synthetic_batches
+
+    cfg = TrainConfig(clip_length=8, image_size=(32, 32), batch_size=batch_size,
+                      lr_drop_step=lr_drop_step)
+    batches = list(prefetch_to_device(synthetic_batches(batch_size, 8, 32, n_batches, seed=0),
+                                      "cuda"))
+    return cfg, batches, lambda: make_train_step(fused_ota=True, remat=remat)
+
+
+def _launches():
+    from echoflow_torch.ops import warp_kernel as wk
+
+    return np.array([wk.warp_forward.launches, wk.warp_image_grad.launches,
+                     wk.warp_coord_grad.launches])
+
+
+def _run_steps(cfg, batches, factory, graph):
+    """Steps from the seed-0 state over `batches`, eager or graphed: the
+    state, the step, and per step (loss, LR applied, launches)."""
+    from echoflow_torch.train.graph import graphed
+    from echoflow_torch.train.loop import create_train_state
+
+    state = create_train_state(0, cfg, device="cuda")
+    step = graphed(factory(), state) if graph else factory()
+    out = []
+    for batch in batches:
+        before = _launches()
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(state.optimizer.param_groups[0]["lr"]),
+                    tuple(_launches() - before)))
+    return state, step, out
+
+
+def _flat_state(state):
+    """(parameters, running statistics) of the state's model, each one
+    float64 vector."""
+    model = state.model
+    return (torch.cat([p.detach().reshape(-1).double() for p in model.parameters()]),
+            torch.cat([v.reshape(-1).double() for k, v in model.state_dict().items()
+                       if "running" in k]))
+
+
+def _same_state_step(cfg, state, step, factory, batch):
+    """The graphed `step` and the eager step on an eager twin of `state`
+    (`chip_smoke.eager_twin`), from the same state and batch: phase 6's
+    measures (`chip_smoke._compare_steps`) of the two."""
+    from chip_smoke import _host_grads, _compare_steps, eager_twin
+
+    twin = eager_twin(state, cfg)
+    twin, m_twin = factory()(twin, batch)
+    state, m = step(state, batch)
+    return _compare_steps(float(m["loss"]), _host_grads(state.model), float(m_twin["loss"]),
+                          _host_grads(twin.model))
+
+
+def _phase6_bars(c):
+    return c["loss_rel"] <= 1e-5 and c["grad_rel"] <= 5e-3 and c["leaf_rel"] <= 1e-2
+
+
+@pytest.mark.cuda
+def test_graphed_steps_follow_the_eager_steps(cuda):
+    """Four steps from one state, five times eagerly and once graphed (the
+    warm-up, the capture and its replay, two replays), the LR dropping at
+    update 2, between replays: the warm-up's loss within 1e-5 of the eager
+    one's; a replay within phase 6's bars of the eager step from the same
+    state and batch; the LR each update applied is the schedule's; K2/K3/K4
+    7/6/14 a step; after 4 steps the parameters' moves on average at most
+    2x as far from the eager runs' as the eager runs are from each other
+    (K3's atomics, amplified by Adam), or 1e-6 of the move where those
+    agree bitwise; the running statistics likewise, and
+    `num_batches_tracked` equal. Five eager runs, because at this size the
+    distance between two runs is a noisy measure of their spread. On an
+    H100 a single pair read 1.28e-3 for the running statistics where the
+    graphed run read 3.26e-3 from one eager run. Averaged over three eager
+    runs, five repeats read graphed/eager 0.56-1.79; over five, eight
+    repeats read 0.68-1.05."""
+    cfg, batches, factory = _graph_setup(4)
+    runs = [_run_steps(cfg, batches, factory, graph) for graph in (False,) * 5 + (True,)]
+    schedule = [float(torch.tensor(x, dtype=torch.float32)) for x in (1e-4, 1e-4, 1e-5, 1e-5)]
+    for _, _, steps in runs:
+        assert [lr for _, lr, _ in steps] == schedule
+        assert all(c == (7, 6, 14) for _, _, c in steps)
+    assert abs(runs[5][2][0][0] - runs[0][2][0][0]) <= 1e-5 * abs(runs[0][2][0][0])
+    origin = _flat_state(_run_steps(cfg, [], factory, False)[0])
+    ends = [_flat_state(s) for s, _, _ in runs]
+    for i, name in enumerate(("parameters", "running statistics")):
+        *eager, graphed_ = (end[i] - origin[i] for end in ends)
+        scale = eager[0].norm()
+
+        def dist(a, b):
+            return float((a - b).norm() / scale)
+        spread = np.mean([dist(a, b) for j, a in enumerate(eager) for b in eager[j + 1:]])
+        apart = np.mean([dist(graphed_, e) for e in eager])
+        print(f"{name}: graphed {apart:.3e} from the eager runs, eager runs {spread:.3e} apart")
+        assert apart <= max(2 * spread, 1e-6), (name, apart, spread)
+    tracked = [{int(v) for k, v in s.model.state_dict().items() if "num_batches" in k}
+               for s, _, _ in runs]
+    assert tracked[0] == tracked[5] == {4}
+    state, step, _ = runs[5]
+    assert _phase6_bars(_same_state_step(cfg, state, step, factory, batches[0]))
+
+
+@pytest.mark.cuda
+def test_graphed_step_captures_again_for_a_new_batch_shape(cuda):
+    """A batch of another size is a new signature: its own warm-up and
+    capture, launches 7/6/14 a step; the first graph keeps replaying. A
+    replay of each graph within phase 6's bars of the eager step from the
+    same state and batch."""
+    cfg, big, factory = _graph_setup(3, batch_size=2)
+    _, small, _ = _graph_setup(3, batch_size=1)
+    state, step, got = _run_steps(cfg, big + small + big[:1], factory, True)
+    assert len(step.graphs) == 2 and state.step == 7
+    assert all(c == (7, 6, 14) for _, _, c in got)
+    for batch in (small[0], big[1]):
+        assert _phase6_bars(_same_state_step(cfg, state, step, factory, batch))
+
+
+@pytest.mark.cuda
+def test_graphed_metrics_are_not_aliased_between_calls(cuda):
+    """A call's metrics are its own: the next replay overwrites only the
+    graph's static outputs. The graphed eval step agrees with the eager
+    one within 1e-5."""
+    from echoflow_torch.train.graph import graphed
+    from echoflow_torch.train.loop import make_eval_step
+
+    cfg, batches, factory = _graph_setup(4)
+    state, step, _ = _run_steps(cfg, batches[:2], factory, True)
+    _, m3 = step(state, batches[2])
+    first = {k: float(v) for k, v in m3.items()}
+    _, m4 = step(state, batches[3])
+    assert {k: float(v) for k, v in m3.items()} == first
+    assert first["loss"] != float(m4["loss"])
+    eval_step = make_eval_step()
+    want = {k: float(v) for k, v in eval_step(state, batches[0]).items()}
+    g_eval = graphed(eval_step, state)
+    assert g_eval.memory is step.memory
+    for _ in range(3):
+        got = {k: float(v) for k, v in g_eval(state, batches[0]).items()}
+        assert all(abs(got[k] - want[k]) <= 1e-5 * max(abs(want[k]), 1e-30) for k in want)
+
+
+@pytest.mark.cuda
+def test_graphed_step_refuses_after_a_restore(cuda, tmp_path):
+    """`restore_train_state` gives Adam new state tensors: the graph
+    captured before it raises instead of updating the old ones; a new
+    wrapper trains on."""
+    from echoflow_torch.train import checkpoint as ck
+    from echoflow_torch.train.graph import graphed
+
+    cfg, batches, factory = _graph_setup(4)
+    state, step, _ = _run_steps(cfg, batches[:3], factory, True)
+    ck.save_checkpoint(str(tmp_path / "ck.pth"), state)
+    state, _ = ck.restore_train_state(str(tmp_path / "ck.pth"), state)
+    with pytest.raises(RuntimeError, match="replaced"):
+        step(state, batches[3])
+    assert state.step == 3
+    state, m = graphed(factory(), state)(state, batches[3])
+    assert np.isfinite(float(m["loss"])) and state.step == 4
+
+
+@pytest.mark.cuda
+def test_graphed_remat_step_moves_the_running_statistics_once(cuda):
+    """Remat's recompute runs under `frozen_running_stats`, a Python flag
+    read while the backward is captured: after 3 replays
+    `num_batches_tracked` is 4 (4 updates), and a replay moves the running
+    statistics as the eager remat step does from the same state and batch
+    (within 1e-6 of the move; a second move would double it)."""
+    from chip_smoke import eager_twin
+
+    cfg, batches, factory = _graph_setup(4, remat=True)
+    state, step, _ = _run_steps(cfg, batches, factory, True)
+    assert {int(v) for k, v in state.model.state_dict().items() if "num_batches" in k} == {4}
+    twin = eager_twin(state, cfg)
+    before = _flat_state(state)[1]
+    twin, _ = factory()(twin, batches[0])
+    state, _ = step(state, batches[0])
+    move, want = _flat_state(state)[1] - before, _flat_state(twin)[1] - before
+    assert float((move - want).norm()) <= 1e-6 * float(want.norm())
+    assert {int(v) for k, v in state.model.state_dict().items() if "num_batches" in k} == {5}
+
+
+@pytest.mark.cuda
+def test_graphed_replay_makes_no_host_sync(cuda):
+    """A replay (the batch copied into the graph's inputs, the LR written,
+    the graph launched, the metrics copied) waits for nothing."""
+    cfg, batches, factory = _graph_setup(3)
+    state, step, _ = _run_steps(cfg, batches[:2], factory, True)
+    state, metrics = _no_sync(lambda: step(state, batches[2]))
+    assert np.isfinite(float(metrics["loss"])) and state.step == 3
+
+
+@pytest.mark.cuda
+def test_graphed_refuses_a_float_lr(cuda):
+    """A float LR would be frozen into the graph at its capture value."""
+    from echoflow_torch.train.graph import graphed
+    from echoflow_torch.train.loop import TrainConfig, create_train_state, make_train_step
+
+    state = create_train_state(0, TrainConfig(), device="cuda")
+    state.optimizer.param_groups[0]["lr"] = 1e-4
+    with pytest.raises(ValueError, match="LR"):
+        graphed(make_train_step(), state)

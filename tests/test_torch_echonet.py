@@ -4,6 +4,7 @@ that both packages write from the same seeds."""
 
 import filecmp
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +26,17 @@ torch.set_num_threads(2)
 # products in another order (tests/test_torch_resize.py), then the [0, 1]
 # normalization.
 RESIZE_TOL = 1e-6
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's `tmp_path`, removed after the test. The files written here
+    hold the whole model (126 MB of weights; a checkpoint with Adam's
+    state 362 MB), and pytest keeps the directories of its last three
+    runs: left alone, they fill the disk that later checkpoints are saved
+    to (`torch.save` then fails)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -3,6 +3,8 @@
 The flax model is the oracle: its variables go through the port's
 converter, and both forwards run on the same numpy input."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -55,6 +57,17 @@ def _randomize_bn(variables, seed=0):
 
     walk(params, stats)
     return {"params": params, "batch_stats": stats}
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's `tmp_path`, removed after the test. The files written here
+    hold the whole model (126 MB of weights; a checkpoint with Adam's
+    state 362 MB), and pytest keeps the directories of its last three
+    runs: left alone, they fill the disk that later checkpoints are saved
+    to (`torch.save` then fails)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

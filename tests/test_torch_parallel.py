@@ -25,6 +25,7 @@ echo-like clips: parameters after two updates 1.0e-10 (clasfv) and 1.4e-10
 
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -55,6 +56,17 @@ T, S, N = 8, 32, 4
 REL = 1e-10           # loss, terms, running statistics, Dice, gradient leaves
 PARAM_ABS = 1e-9      # parameters after the two updates
 ZERO_LEAF = 1e-4      # below this share of the largest leaf: 0 in exact arithmetic
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's `tmp_path`, removed after the test. The files written here
+    hold the whole model (126 MB of weights; a checkpoint with Adam's
+    state 362 MB), and pytest keeps the directories of its last three
+    runs: left alone, they fill the disk that later checkpoints are saved
+    to (`torch.save` then fails)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _batch(seed, motion="disc"):
@@ -357,7 +369,9 @@ def test_train_clasfv_torch_under_torchrun(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     proc = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True,
                           timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    if proc.returncode != 0:   # pytest.fail: an assert's message would be cut short
+        pytest.fail(f"torchrun exited {proc.returncode}\n--- stdout\n{proc.stdout[-2000:]}\n"
+                    f"--- stderr\n{proc.stderr[-8000:]}")
     assert proc.stdout.count("epoch 0: val loss") == 1     # rank 0 alone prints
     assert proc.stdout.count("step 2:") == 1
     payload = ck.load_checkpoint(str(out) + ".last")

@@ -24,6 +24,8 @@ float64 (echoflow's model built with dtype=float64 under
 The test prints what it measured (`pytest -s`).
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -77,6 +79,17 @@ def _torch_batch(b):
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's `tmp_path`, removed after the test. The files written here
+    hold the whole model (126 MB of weights; a checkpoint with Adam's
+    state 362 MB), and pytest keeps the directories of its last three
+    runs: left alone, they fill the disk that later checkpoints are saved
+    to (`torch.save` then fails)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

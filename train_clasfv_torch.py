@@ -242,9 +242,9 @@ def main(argv=None):
     from echoflow_torch.parallel import init_distributed
     from echoflow_torch.train.checkpoint import restore_train_state, save_checkpoint
     from echoflow_torch.train.loop import (
-        TrainConfig, _sharded, create_train_state, fit, fit_on_mesh,
-        make_ed_es_only_eval_step, make_ed_es_only_train_step, make_eval_step,
-        prefetch_to_device)
+        TrainConfig, _sharded, compiled_steps, create_train_state, data_parallel, fit,
+        fit_on_mesh, make_ed_es_only_eval_step, make_ed_es_only_train_step, make_eval_step,
+        make_train_step, prefetch_to_device)
 
     # Under torchrun, one rank a card; a plain run stays one process.
     owned = not dist.is_initialized()
@@ -286,8 +286,14 @@ def main(argv=None):
         say(f"resumed from {args.resume} at step {state.step}, starting epoch {start_epoch}")
 
     ed_es_only = args.recipe == "ed_es_only"
-    eval_step = (make_ed_es_only_eval_step if ed_es_only else make_eval_step)()
-    step_factory = make_ed_es_only_train_step if ed_es_only else None
+    step_factory, eval_factory = ((make_ed_es_only_train_step, make_ed_es_only_eval_step)
+                                  if ed_es_only else (make_train_step, make_eval_step))
+    if distributed:
+        state = data_parallel(state)
+    # Once a run, so that an epoch does not capture them again: on one card
+    # CUDA graphs of the steps (echoflow's jit), under DDP and on the CPU the
+    # eager steps.
+    train_step, eval_step = compiled_steps(state, step_factory, eval_factory)
 
     def epoch_batches(epoch, split):
         if not args.synthetic:
@@ -314,7 +320,7 @@ def main(argv=None):
             val_batches = _sharded(epoch_batches(epoch, "val"), rank, world)
         else:
             state, _ = fit(state, epoch_batches(epoch, "train"), log_every=args.log_every,
-                           step_factory=step_factory)
+                           steps=(train_step, eval_step))
             val_batches = epoch_batches(epoch, "val")
         val_losses, ed_d, es_d = [], [], []
         for batch in prefetch_to_device(val_batches, device):
