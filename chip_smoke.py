@@ -59,13 +59,13 @@ Phases (any failure raises and the script exits nonzero):
      the GIF without matplotlib or PIL), the smoke weights as an echoflow
      `.pkl`: artifact names, masks, finite EFs, wall time;
   9. data parallelism: (a) in a one-rank NCCL group, phase 6's full-width
-     fused step (seed-0 state, its first batch) through
-     DistributedDataParallel, global BatchNorm and the coupled smoothness:
-     its loss against the plain step on the same card (1e-5), K2/K3/K4
-     launches held at 31/30/62, and after DDP's bucket rebuild the calls
+     fused step (seed-0 state, its first batch) through `data_parallel`
+     (the gradient all-reduce, global BatchNorm and the coupled
+     smoothness): its loss against the plain step on the same card (1e-5),
+     K2/K3/K4 launches held at 31/30/62, and in the third step the calls
      that wait for the device (none) and the collectives of a step; the
      gradients at phase 6's bars on phase 6's (2, 3, 8, 32, 32) step, with
-     and without DDP; (b) `VideoSegmenter(devices=["cuda:0", "cuda:0"])`, fp32, on
+     and without data parallelism; (b) `VideoSegmenter(devices=["cuda:0", "cuda:0"])`, fp32, on
      phase 4's three videos against phase 4's masks (1e-4 of the pixels),
      K1's launches held at the chunk plan's; (c) `dryrun_multigpu(1,
      "nccl")`, echoflow's six multichip cases on a spawned rank;
@@ -94,12 +94,13 @@ Phases (any failure raises and the script exits nonzero):
      path on phase 4's videos, host times of both;
  12. graphed steps (`train/graph.py`, what `fit` runs on the card): for each
      of fp32, fp32 with remat, bf16, bf16 with remat and the ed-or-es-only
-     recipe, 4 steps from phase 6's seed-0 state and batches, twice eagerly
-     and once graphed (a warm-up, a capture with its replay, two replays),
-     the LR dropping at update 2: the warm-up and a replay at phase 6's
-     bars (bf16: 1e-2 and 3e-2) against the eager step from the same
-     state and batch; after 4 steps the parameters and running statistics
-     at most 2x as far from the eager run's as two eager runs are apart,
+     recipe, 4 steps from phase 6's seed-0 state and batches, three times
+     eagerly and once graphed (a warm-up, a capture with its replay, two
+     replays), the LR dropping at update 2: the warm-up and a replay at
+     phase 6's bars (bf16: 1e-2 and 3e-2) against the eager step from the
+     same state and batch; after 4 steps the parameters and running
+     statistics at most 2x as far from the eager runs' (median of three)
+     as the eager runs are apart (median of their three pairs),
      `num_batches_tracked` equal, the LR of each update the schedule's;
      launches zeroed just before each step and held at the recipe's, K1's
      held at 0; K1-K4 by kernel name in a profiled replay; no wait in a
@@ -108,6 +109,26 @@ Phases (any failure raises and the script exits nonzero):
      busy time and idle share, peak memory.
      12f: `train_clasfv_torch.main` for 2 epochs of 3 steps, one train and
      one eval graph a run.
+ 13. graphs of the paths echoflow compiles that ran op by op before
+     (phase 12's graphs dropped first): (a) in a one-rank NCCL group, the
+     data-parallel fused step in fp32, bf16 (residuals damped) and fp32
+     with remat, and the data-parallel eval step: eager (the first call,
+     then the median of 5) and graphed (warm-up, capture, median of 5
+     replays); a replay against the eager step of a twin from the same
+     state and batch at phase 12's bars; the collectives called in the
+     capture equal to the eager step's; K1-K4 by name in a profiled
+     replay 0/31/60/62 (eval 0/33/0/0), device busy and idle
+     share; no wait in a replay; memory reserved with the graphs; then
+     `fit_on_mesh` on the graphed steps of `compiled_steps` (as
+     `train_clasfv_torch.py` under torchrun runs them) against the same
+     run eager, and `parallel/dryrun.dp_train_steps` on its graphs; (b)
+     phase 7's rollouts through their graphs, a replay bitwise the eager
+     rollout, its launches by all four counters (K2 62 or 32, K1, K3, K4
+     0) and by name among the nodes of the graph it ran, eager and graphed
+     ms; (c) `train_camus_torch.main --synthetic --epochs 2`
+     through its graphs against the same run eager, with and without
+     `--acnn`: losses within 1e-3, graphs and replays, no warp launch.
+     Phase 7 runs the eager rollouts (`fn.__wrapped__`).
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -120,6 +141,8 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
+import itertools
 import json
 import os
 import statistics
@@ -250,17 +273,23 @@ def k1_bound(projs, with_motion, out_hw=(112, 112)):
                 flops=core_flops + comb2_flops, nbytes=nbytes)
 
 
+DEVICE_MS_SESSIONS = 6
+
+
 def device_ms(fn, reps: int = 20, match: str | None = None):
     """Device time per call of `fn` from torch.profiler: the summed duration
     of the device kernels (and memsets/copies) it launches, not the device
     mirrors of the `echoflow_torch.*` ranges around them, over `reps`
     back-to-back calls after one warm-up; with `match`, also the time of
     the kernels whose name contains it. A session that records no device
-    event (it happens, rarely, on the card's sandbox) is repeated up to
-    three times. Returns (total_ms, matched_ms)."""
+    event (it happens on the card's sandbox, once three sessions in a row)
+    is repeated, up to DEVICE_MS_SESSIONS sessions, a second apart.
+    Returns (total_ms, matched_ms)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(DEVICE_MS_SESSIONS):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -277,7 +306,8 @@ def device_ms(fn, reps: int = 20, match: str | None = None):
                 matched += evt.device_time_total
         if total > 0.0:
             return total / reps / 1e3, matched / reps / 1e3
-    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+    raise RuntimeError(f"torch.profiler recorded no device time in {DEVICE_MS_SESSIONS} "
+                       "sessions")
 
 
 def _grid(px, py, h, w):
@@ -733,9 +763,12 @@ def phase_clips():
     forward on the card and the CPU port; then the rollouts of
     `infer/propagate.py` on their motion, each against the same call on the
     plain warp."""
+    from echoflow_torch.infer import propagate
     from echoflow_torch.infer.clips import ClipForward
-    from echoflow_torch.infer.propagate import deform_forback, deform_images_forback
 
+    # The eager rollouts (phase 13b holds their graphs against them).
+    deform_forback = propagate.deform_forback.__wrapped__
+    deform_images_forback = propagate.deform_images_forback.__wrapped__
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     state, video, ed, starts = clip_workload()
@@ -834,7 +867,6 @@ def phase_clips():
         if count != want or not bitwise:
             raise AssertionError(f"{name}: K2 launches {count} (want {want}), bitwise {bitwise}")
         del got, ref
-    del mot, images
     torch.cuda.empty_cache()
     bilinear = [r for r in rollouts.values() if r["implied"]]
     k2_launches = sum(r["implied"] for r in bilinear)   # = the counts, checked above
@@ -843,7 +875,7 @@ def phase_clips():
             "k1_bound_by": k1_b["bound_by"], "k2_launches": k2_launches,
             "k2_ms_per_launch": sum(r["k2_ms"] for r in bilinear) / k2_launches,
             "k2_bound_ms_per_launch": sum(r["k2_bound_ms"] for r in bilinear) / k2_launches,
-            "rollouts": rollouts}
+            "rollouts": rollouts, "rollout_inputs": (label_ed, label_es, mot, images)}
 
 
 def write_echoflow_pkl(path, state):
@@ -959,13 +991,13 @@ def _dp_step_grads(batch):
 
 def phase_dp_train():
     """Phase 9a: one-rank NCCL group. The full-width fused step (phase 6's
-    seed-0 state and first batch) through DDP, global BatchNorm and the
-    coupled smoothness: its loss and gradients against the plain step's,
-    its launches, and after DDP's one bucket rebuild (the second step) the
-    calls that wait for the device and the collectives of a step. The
+    seed-0 state and first batch) through `data_parallel` (the gradient
+    all-reduce, global BatchNorm and the coupled smoothness): its loss and
+    gradients against the plain step's, its launches, and in the third step
+    the calls that wait for the device and the collectives of a step. The
     full-width gradients are held at bars set from readings
     (`DP_FULL_GRAD_TOL`); phase 6's (2, 3, 8, 32, 32) step on the card,
-    without and with DDP, at phase 6's bars. Each step is also run twice to
+    without and with data parallelism, at phase 6's bars. Each step is also run twice to
     read the run-to-run spread (K3's atomics add in a run-dependent order)
     that the bars must leave room for."""
     import torch.distributed as dist
@@ -1001,7 +1033,7 @@ def phase_dp_train():
             counts = _launch_counts()
             full = _compare_steps(float(m_dp["loss"]), _grad_dict(state.model), loss_plain,
                                   grads_plain)
-            step(state, batches[1])   # DDP rebuilds its buckets once, here
+            step(state, batches[1])
             (state, _), syncs = count_syncs(lambda: step(state, batches[2]))
             torch.cuda.synchronize()
             collectives, device_events = collections.Counter(), collections.Counter()
@@ -1029,7 +1061,7 @@ def phase_dp_train():
     del batches
     torch.cuda.empty_cache()
     want = (cfg.clip_length - 1, cfg.clip_length - 2, 2 * (cfg.clip_length - 1))
-    log(f"dp (a): one-rank NCCL group, the full-width fused step through DDP: loss "
+    log(f"dp (a): one-rank NCCL group, the full-width data-parallel fused step: loss "
         f"{float(m_dp['loss']):.6f} vs the plain step's {loss_plain:.6f} (rel "
         f"{full['loss_rel']:.2e}, limit {LOSS_TOL:.0e}); launches (K2, K3, K4) {counts}, "
         f"implied {want}; gradients vs the plain step rel L2 {full['grad_rel']:.2e} (limit "
@@ -1037,15 +1069,15 @@ def phase_dp_train():
         f"{DP_FULL_LEAF_TOL:.0e}), zero leaves {full['zero_leaf']:.2e} (limit {ZERO_LEAF:.0e}); "
         f"two plain steps apart by {full_plain_spread:.2e} (information); first DP step "
         f"{first_ms:.1f} ms (host clock, information only)")
-    log(f"  one step after DDP's bucket rebuild: calls that wait for the device "
+    log(f"  the third step: calls that wait for the device "
         f"{sum(syncs.values())} {dict(syncs)}; collectives (host record) "
         f"{sum(collectives.values())} {dict(collectives)}; device events named nccl "
         f"{sum(device_events.values())}, {nccl_ms:.3f} ms; profiled step {profiled_ms:.1f} ms")
-    log(f"  phase 6's (2, 3, 8, 32, 32) step on the card, DDP vs plain: loss rel "
+    log(f"  phase 6's (2, 3, 8, 32, 32) step on the card, data-parallel vs plain: loss rel "
         f"{cmp['loss_rel']:.2e} (limit {LOSS_TOL:.0e}), gradients rel L2 {cmp['grad_rel']:.2e} "
         f"(limit {GRAD_TOL:.0e}), worst leaf {cmp['leaf_rel']:.2e} (limit {LEAF_TOL:.0e}), "
         f"zero leaves {cmp['zero_leaf']:.2e} (limit {ZERO_LEAF:.0e}); two runs of each "
-        f"apart by {small_spread['dp']:.2e} (DDP) and {small_spread['plain']:.2e} (plain) "
+        f"apart by {small_spread['dp']:.2e} (data-parallel) and {small_spread['plain']:.2e} (plain) "
         f"(information)")
     if not (full["loss_rel"] <= LOSS_TOL and full["grad_rel"] <= DP_FULL_GRAD_TOL
             and full["leaf_rel"] <= DP_FULL_LEAF_TOL and full["zero_leaf"] <= ZERO_LEAF
@@ -1413,10 +1445,10 @@ def phase_bf16_vs_float64():
 
 
 def phase_remat_dp():
-    """Phase 11d: phase 9a's one-rank NCCL group with the remat step: after
-    DDP's bucket rebuild, the collectives of one step (host records; the
-    recompute issues BatchNorm's all-gathers again) and, under sync mode
-    "error", no wait."""
+    """Phase 11d: phase 9a's one-rank NCCL group with the remat step: in the
+    fourth step, the collectives of one step (host records; the recompute
+    issues BatchNorm's all-gathers again) and, under sync mode "error", no
+    wait."""
     import torch.distributed as dist
 
     from echoflow_torch.train.loop import data_parallel
@@ -1432,7 +1464,7 @@ def phase_remat_dp():
         try:
             state = data_parallel(create_train_state(0, cfg, device="cuda"))
             state, _ = step(state, batches[0])
-            state, _ = step(state, batches[1])   # DDP rebuilds its buckets once, here
+            state, _ = step(state, batches[1])
             _, error = sync_error(lambda: step(state, batches[2]))
             torch.cuda.synchronize()
             collectives = collections.Counter()
@@ -1495,8 +1527,15 @@ GRAPH_VARIANTS = (("fp32", torch.float32, False, "clasfv"),
                   ("ed_es_only", torch.float32, False, "ed_es_only"))
 GRAPH_STEPS = 4        # the warm-up, the capture and its replay, two replays
 GRAPH_LR_DROP = 2      # the LR drops at update 2: between the second and third replays
-SPREAD_RATIO = 2.0     # graphed vs eager at most this x two eager runs apart
-MOVE_FLOOR = 1e-6      # ... or this share of the moves: two eager runs may agree bitwise
+EAGER_RUNS = 3         # eager runs of each variant: their median spread is the bar's scale
+SPREAD_RATIO = 2.0     # graphed vs eager at most this x the eager runs apart (medians)
+MOVE_FLOOR = 1e-6      # ... or this share of the moves: eager runs may agree bitwise
+# Why medians of three: two eager bf16 runs from one state now and then
+# agree nearly bitwise, and are then about ten times closer after 4 steps
+# than two runs whose bf16 roundings differ somewhere (Adam amplifies those).
+# One such pair made the bar 2 x 8.0e-3 against a graphed run 9.1e-2 away,
+# as far as eager runs usually are from each other (9.0e-2, H100). The
+# median of three pairs is that small only when all three runs agree.
 EVAL_TOL = 1e-5        # the graphed eval step's metrics vs the eager one's (relative)
 TIMED_REPLAYS = 5
 # bf16's eager step is not repeatable to phase 6's bars. Two eager steps
@@ -1622,17 +1661,22 @@ def _move_dist(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def profile_replay(step, state, batch):
-    """One call of a graphed step under torch.profiler: wall ms, the
-    device's busy ms, and the launches of K1, K2, K3 (both its kernels)
-    and K4 by kernel name (KERNEL_NAMES)."""
+def _sci(values):
+    return "[" + ", ".join(f"{v:.2e}" for v in values) + "]"
+
+
+def profile_replay(call):
+    """One `call()` (a replay of a graph, or an eager call to compare)
+    under torch.profiler: wall ms, the device's busy ms, the launches of
+    K1, K2, K3 (both its kernels) and K4 by kernel name (KERNEL_NAMES), and
+    the device events whose name holds "nccl", by name."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy, names = 0.0, collections.Counter()
+    busy, names, nccl = 0.0, collections.Counter(), collections.Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CPU or \
                 evt.name.startswith("echoflow_torch."):
@@ -1641,7 +1685,9 @@ def profile_replay(step, state, batch):
         for short in KERNEL_NAMES:
             if short in evt.name:
                 names[short] += 1
-    return wall, busy, tuple(names[n] for n in KERNEL_NAMES)
+        if "nccl" in evt.name.lower():
+            nccl[evt.name.split("(")[0][:60]] += 1
+    return wall, busy, tuple(names[n] for n in KERNEL_NAMES), nccl
 
 
 def step_tolerances(dtype):
@@ -1656,7 +1702,7 @@ def step_tolerances(dtype):
 def _graph_checks(name, res, want, want_eval):
     """The failures of phase 12's checks on one variant's readings."""
     bad = []
-    eager, _, graphed_run = res["runs"]
+    eager, graphed_run = res["runs"][0], res["runs"][-1]
     tols = step_tolerances(res["dtype"])
     for label, c in (("step 1", res["warm_up"]), ("step 3", res["replay"])):
         if not (c["loss_rel"] <= LOSS_TOL and c["grad_rel"] <= tols["grad_rel"]
@@ -1667,7 +1713,7 @@ def _graph_checks(name, res, want, want_eval):
             bad.append(f"{k} {d:.2e} > {SPREAD_RATIO} x {res['move_spread'][k]:.2e}")
     if graphed_run["tracked"] != eager["tracked"]:
         bad.append("num_batches_tracked")
-    for r in (eager, graphed_run):
+    for r in res["runs"]:
         if [rec["lr"] for rec in r["steps"]] != res["want_lr"]:
             bad.append("LR applied")
         if any(rec["launches"] != want for rec in r["steps"]):
@@ -1692,7 +1738,7 @@ def phase_graphs():
     """Phase 12: for each of fp32, fp32 with remat, bf16, bf16 with remat
     and the ed-or-es-only recipe (fp32), GRAPH_STEPS steps from the seed-0
     state (bf16: residuals damped, `_trajectory`) on phase 6's batches,
-    twice eagerly and once through `graphed`
+    EAGER_RUNS times eagerly and once through `graphed`
     (a warm-up, a capture with its replay, two replays), with the LR
     dropping at update GRAPH_LR_DROP. Held against the eager step from
     the same state and batch: the graphed step 1 (the warm-up) against the
@@ -1700,12 +1746,13 @@ def phase_graphs():
     graphed state (two eager runs are far apart by step 3: K3's atomics,
     amplified by Adam), at phase 6's bars in fp32 and BF16_GRAD_TOL and
     BF16_LEAF_TOL in bf16 (`step_tolerances`; how far two eager steps
-    from one state are apart is printed beside them: the two eager runs
-    at step 1, a second twin at step 3). After the run its parameters
-    and running statistics at most SPREAD_RATIO x as far from the eager
-    run's as the two eager runs are apart, and `num_batches_tracked`
-    equal; the LR each update applied equal to the schedule's; launches
-    zeroed just before each step and held at the recipe's
+    from one state are apart is printed beside them: the first two eager
+    runs at step 1, a second twin at step 3). After the run the median
+    distance of its parameters and running statistics from the eager
+    runs' at most SPREAD_RATIO x the median distance of the eager runs'
+    pairs, and `num_batches_tracked` equal; the LR each update applied
+    equal to the schedule's; launches zeroed just before each step and
+    held at the recipe's
     (`recipe_steps`), and K1's zeroed at the variant's start and held at 0
     through all of it. Then on the graphed state the median of TIMED_REPLAYS
     unprofiled replays, one replay under the profiler (K1-K4 by kernel
@@ -1734,13 +1781,13 @@ def phase_graphs():
         decoder_heads.launches = 0
         batches = list(prefetch_to_device(iter(hosts[recipe]), "cuda"))
         runs = []
-        for graph in (False, False, True):
+        for graph in (False,) * EAGER_RUNS + (True,):
             state, step, run = _trajectory(cfg, factory, batches, graph)
             runs.append(run)
             if not graph:
                 del state, step
                 torch.cuda.empty_cache()
-        eager, eager2, graphed_run = runs
+        eager, eager2, graphed_run = runs[0], runs[1], runs[-1]
         g1, g3 = graphed_run["steps"][0], graphed_run["steps"][2]
         warm_up = _compare_steps(g1["loss"], g1["grads"], eager["steps"][0]["loss"],
                                  eager["steps"][0]["grads"])
@@ -1749,8 +1796,12 @@ def phase_graphs():
         apart = {i: _compare_steps(eager2["steps"][i]["loss"], eager2["steps"][i]["grads"],
                                    eager["steps"][i]["loss"], eager["steps"][i]["grads"])
                  for i in (0, 2)}
-        dist = {k: _move_dist(graphed_run[k], eager[k]) for k in ("param_move", "stats_move")}
-        spread = {k: _move_dist(eager2[k], eager[k]) for k in ("param_move", "stats_move")}
+        moves = ("param_move", "stats_move")
+        dists = {k: [_move_dist(graphed_run[k], e[k]) for e in runs[:-1]] for k in moves}
+        spreads = {k: [_move_dist(a[k], b[k]) for a, b in itertools.combinations(runs[:-1], 2)]
+                   for k in moves}
+        dist = {k: statistics.median(v) for k, v in dists.items()}
+        spread = {k: statistics.median(v) for k, v in spreads.items()}
         for r in runs:
             for rec in r["steps"]:
                 rec.pop("grads", None)
@@ -1763,7 +1814,7 @@ def phase_graphs():
             step(state, batches[i % GRAPH_STEPS])
             torch.cuda.synchronize()
             timed.append((time.perf_counter() - t0) * 1e3)
-        wall, busy, named = profile_replay(step, state, batches[0])
+        wall, busy, named, _ = profile_replay(lambda: step(state, batches[0]))
         _, error = sync_error(lambda: step(state, batches[1]))
         evals = None
         if name in ("fp32", "ed_es_only"):
@@ -1781,7 +1832,7 @@ def phase_graphs():
         k1_launches = decoder_heads.launches
         del state, step
         torch.cuda.empty_cache()
-        eager_ms = [rec["ms"] for r in (eager, eager2) for rec in r["steps"][1:]]
+        eager_ms = [rec["ms"] for r in runs[:-1] for rec in r["steps"][1:]]
         res = out[name] = dict(
             dtype=dtype, k1_launches=k1_launches,
             warm_up=warm_up, replay=replay, eager_apart=apart, twins_apart=twins_apart,
@@ -1805,9 +1856,11 @@ def phase_graphs():
             f"{step_tolerances(dtype)['leaf_rel']:.0e}); the two eager runs at step 3 "
             f"(diverged by then) loss {apart[2]['loss_rel']:.2e}, gradients "
             f"{apart[2]['grad_rel']:.2e} (information)")
-        log(f"  after {GRAPH_STEPS} steps: parameter moves {dist['param_move']:.2e} from the "
-            f"eager run's, two eager runs {spread['param_move']:.2e}; running statistics "
-            f"{dist['stats_move']:.2e}, eager runs {spread['stats_move']:.2e} (limit "
+        log(f"  after {GRAPH_STEPS} steps (medians; each distance in brackets): parameter moves "
+            f"{dist['param_move']:.2e} from the eager runs' {_sci(dists['param_move'])}, eager "
+            f"runs apart {spread['param_move']:.2e} {_sci(spreads['param_move'])}; running "
+            f"statistics {dist['stats_move']:.2e} {_sci(dists['stats_move'])}, eager runs "
+            f"{spread['stats_move']:.2e} {_sci(spreads['stats_move'])} (limit "
             f"{SPREAD_RATIO}x); num_batches_tracked {graphed_run['tracked']} (eager "
             f"{eager['tracked']}); LR applied {[r['lr'] for r in graphed_run['steps']]} "
             f"(schedule {want_lr}, eager {[r['lr'] for r in eager['steps']]})")
@@ -1891,6 +1944,452 @@ def phase_graphed_trainer():
     return {"seconds": seconds, "graphs": graphs, "launches": counts, "k1_launches": k1_launches}
 
 
+# Phase 13: the paths echoflow compiles that the port ran op by op before:
+# the data-parallel train and eval steps (phase 9a's one-rank NCCL group),
+# the rollouts (phase 7's inputs) and the CAMUS trainer, as CUDA graphs.
+DP_GRAPH_VARIANTS = (("fp32", torch.float32, False), ("bf16", torch.bfloat16, False),
+                     ("fp32_remat", torch.float32, True))
+DP_TIMED = 5           # eager steps after the first, and replays, timed (median)
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast")
+
+
+def host_collectives(fn):
+    """fn() with each torch.distributed collective of COLLECTIVES counted
+    as it is called (the port's code looks them up on the module at each
+    call): (fn's result, the calls by name). Inside a capture each call
+    puts its collective into the graph."""
+    import torch.distributed as dist
+
+    counts, real = collections.Counter(), {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in COLLECTIVES:
+        setattr(dist, name, counted(name))
+    try:
+        out = fn()
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return out, counts
+
+
+def dp_eager_twin(state, cfg):
+    """`eager_twin` of a data-parallel state, itself made data-parallel in
+    the state's group (the copy leaves BatchNorm's group out)."""
+    from echoflow_torch.models.r2plus1d import sync_batchnorm
+    from echoflow_torch.train.loop import data_parallel
+
+    group = state.group
+    sync_batchnorm(state.model, None)
+    try:
+        twin = eager_twin(state, cfg)
+    finally:
+        sync_batchnorm(state.model, group)
+    return data_parallel(twin, group)
+
+
+def _timed_calls(call, batches, count):
+    """Host ms of `count` calls of `call(batch)`, each ended by a
+    synchronize, and each call's launches (K2, K3, K4)."""
+    times, launches = [], []
+    for i in range(count):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        call(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(tuple(b - a for a, b in zip(before, _launch_counts())))
+    return times, launches
+
+
+def _dp_graph_variant(name, fn, state, batches, compare, profile_eager=True):
+    """One variant of phase 13a on a data-parallel state: `fn(state, batch)`
+    (a train step returning (state, metrics) or an eval step) eagerly, the
+    first call then DP_TIMED timed, the collectives of one call (host
+    record) and, with `profile_eager`, one profiled call; then through
+    `graphed`: the warm-up, the
+    capture (its collectives, host record) with its replay, DP_TIMED timed
+    replays, `compare(step)` (the replay against the eager call from the
+    same state and batch), one profiled replay and one under sync mode
+    "error", and the memory reserved with the graphs (the cache emptied
+    first). In a one-rank NCCL group no collective launches a kernel (the
+    all-reduces work in place and do nothing; each all-gather is a copy),
+    so a replay shows none by name; the host record of the capture shows
+    each one the graph holds."""
+    from echoflow_torch.train.graph import graphed
+
+    t0 = time.perf_counter()
+    decoder_heads.launches = 0
+
+    def run(step):
+        return lambda batch: step(state, batch)
+
+    eager_ms, eager_launches = _timed_calls(run(fn), batches, 1 + DP_TIMED)
+    _, eager_coll = host_collectives(lambda: fn(state, batches[0]))
+    e_wall = e_busy = e_named = None
+    e_nccl = {}
+    if profile_eager:
+        e_wall, e_busy, e_named, e_nccl = profile_replay(lambda: fn(state, batches[1]))
+    g = graphed(fn, state)
+    warm_ms, _ = _timed_calls(run(g), batches[:1], 1)
+    t1 = time.perf_counter()
+    _, capture_coll = host_collectives(lambda: g(state, batches[1]))
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t1) * 1e3
+    graph_ms, graph_launches = _timed_calls(run(g), batches, DP_TIMED)
+    values = compare(g)
+    wall, busy, named, nccl = profile_replay(lambda: g(state, batches[3]))
+    _, error = sync_error(lambda: g(state, batches[0]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(
+        eager_median_ms=statistics.median(eager_ms[1:]), eager_ms=eager_ms,
+        graphed_median_ms=statistics.median(graph_ms), graphed_ms=graph_ms,
+        warm_up_ms=warm_ms[0], capture_ms=capture_ms, eager_launches=eager_launches,
+        graph_launches=graph_launches, eager_collectives=dict(eager_coll),
+        capture_collectives=dict(capture_coll), eager_nccl_events=dict(e_nccl),
+        replay_nccl_events=dict(nccl), eager_profiled=(e_wall, e_busy, e_named),
+        replay_wall_ms=wall, replay_busy_ms=busy, replay_idle_share=1.0 - busy / wall,
+        profiled_launches=named, sync_error=error, values=values,
+        reserved_bytes=torch.cuda.memory_reserved(), k1_launches=decoder_heads.launches,
+        graphs=len(g.graphs))
+    log(f"dp graphs ({name}): eager median {res['eager_median_ms']:.1f} ms "
+        f"{[round(x, 1) for x in eager_ms]}, graphed median {res['graphed_median_ms']:.1f} "
+        f"{[round(x, 1) for x in graph_ms]} (host clock); warm-up {warm_ms[0]:.1f}, capture "
+        f"with its replay {capture_ms:.1f}; collectives called: eager step "
+        f"{sum(eager_coll.values())} {dict(eager_coll)}, in the capture "
+        f"{sum(capture_coll.values())} {dict(capture_coll)}; device events named nccl "
+        f"(information; ranges fire only in the eager call): eager {dict(e_nccl)}, replay "
+        f"{dict(nccl)}")
+    eager_profile = (f"; the eager call's {e_wall:.1f} / {e_busy:.1f}" if profile_eager else "")
+    log(f"  profiled replay wall {wall:.1f} ms, device busy {busy:.1f} (idle "
+        f"{res['replay_idle_share']:.1%}{eager_profile}); "
+        f"K1-K4 by name (K1, K2, K3 x2, K4) replay {named}, eager {e_named}; launches "
+        f"(K2, K3, K4) eager {eager_launches[-1]}, graphed {graph_launches}; K1 "
+        f"{decoder_heads.launches}; waits in a replay: {0 if error is None else error}; "
+        f"reserved {res['reserved_bytes'] / 2**30:.3f} GiB; values {values}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res, g
+
+
+def phase_dp_graphs():
+    """Phase 13a: in a one-rank NCCL group (`init_distributed` with a
+    `file://` store), for each of fp32, bf16 (residuals damped) and fp32
+    with remat, the fused train step of a `data_parallel` state from the
+    seed-0 state on phase 6's batches, eager and through `graphed`
+    (`_dp_graph_variant`): the replay against the eager step of a twin from
+    the same state and batch at phase 12's bars (`step_tolerances`), the
+    collectives called in the capture equal to the eager step's, K1-K4
+    by name in a replay 0/31/60/62 and by counter 31/30/62 a call, no wait
+    in a replay; then the data-parallel eval step on the fp32 state, its
+    replays against the eager eval within EVAL_TOL. Medians of DP_TIMED
+    eager steps (after the first) and replays, the idle share of a replay
+    and the memory reserved with the graphs are printed. Last,
+    `_dp_fit_on_mesh` in the same group. Returns (the variants' results,
+    the `fit_on_mesh` run's)."""
+    from echoflow_torch.parallel.mesh import init_distributed
+    from echoflow_torch.train.loop import data_parallel
+    import torch.distributed as dist
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_base = TrainConfig()
+    t = cfg_base.clip_length
+    _, _, want, want_eval = recipe_steps("clasfv", t)
+    host = list(synthetic_batches(cfg_base.batch_size, t, cfg_base.image_size[0], 5, seed=0))
+    batches = list(prefetch_to_device(iter(host), "cuda"))
+    out, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("file://" + os.path.join(tmp, "store"), world_size=1, rank=0)
+        try:
+            for name, dtype, remat in DP_GRAPH_VARIANTS:
+                cfg = dataclasses.replace(cfg_base, compute_dtype=dtype)
+                state = create_train_state(0, cfg, device="cuda")
+                if dtype == torch.bfloat16:
+                    state.model.load_state_dict(damped_residuals(state.model.state_dict()))
+                state = data_parallel(state)
+                factory = functools.partial(make_train_step, fused_ota=True, remat=remat)
+
+                def compare(g, state=state, cfg=cfg, factory=factory):
+                    twin, m_twin = factory()(dp_eager_twin(state, cfg), batches[2])
+                    want_loss, want_grads = float(m_twin["loss"]), _host_grads(twin.model)
+                    del twin
+                    _, m = g(state, batches[2])
+                    return _compare_steps(float(m["loss"]), _host_grads(state.model),
+                                          want_loss, want_grads)
+
+                res, g = _dp_graph_variant(name, factory(), state, batches, compare,
+                                           profile_eager=name == "fp32")
+                tols = step_tolerances(dtype)
+                c = res["values"]
+                if not (c["loss_rel"] <= LOSS_TOL and c["grad_rel"] <= tols["grad_rel"]
+                        and c["leaf_rel"] <= tols["leaf_rel"] and c["zero_leaf"] <= ZERO_LEAF):
+                    bad.append(f"{name}: replay vs the eager twin {c}")
+                if name == "fp32":
+                    res_eval, g_eval = _dp_eval_variant(state, batches)
+                    out["eval"] = res_eval
+                    del g_eval
+                del g, state, compare
+                gc.collect()
+                torch.cuda.empty_cache()
+                out[name] = res
+            fit = _dp_fit_on_mesh(cfg_base, host)
+        finally:
+            dist.destroy_process_group()
+    del batches
+    torch.cuda.empty_cache()
+    for name, res in out.items():
+        launches = want_eval if name == "eval" else want
+        if res["capture_collectives"] != res["eager_collectives"]:
+            bad.append(f"{name}: collectives in the capture {res['capture_collectives']}, "
+                       f"eager {res['eager_collectives']}")
+        if any(c != launches for c in res["graph_launches"] + res["eager_launches"]):
+            bad.append(f"{name}: launches a call")
+        if res["profiled_launches"] != (0, launches[0], 2 * launches[1], launches[2]) \
+                or res["k1_launches"] != 0:
+            bad.append(f"{name}: kernels by name {res['profiled_launches']}, K1 "
+                       f"{res['k1_launches']}")
+        if res["sync_error"] is not None or res["graphs"] != 1:
+            bad.append(f"{name}: waits {res['sync_error']}, graphs {res['graphs']}")
+    if bad:
+        raise AssertionError(f"graphed data-parallel steps: {bad}")
+    return out, fit
+
+
+def _dp_fit_on_mesh(cfg, host):
+    """Phase 13a's entry points: `fit_on_mesh` over the host batches
+    `host` (4 train, 3 eval) from the seed-0 state, on the graphed steps
+    that `compiled_steps` makes for the data-parallel state (as
+    `train_clasfv_torch.py` under torchrun passes them), against the same
+    run on the eager steps: both steps graphed, the train graph replayed 3
+    times and the eval graph twice, the launches (K1-K4) of the graphed run
+    from the counters (0 before it) 4 train and 3 eval steps' worth, every
+    metric finite, and the first two losses (the warm-up, and the capture's
+    replay after one update) within LOSS_TOL of the eager run's. Then
+    `parallel/dryrun.dp_train_steps`, the repo's other `fit_on_mesh`
+    driver, on 3 batches: its gradients, read after each step, and 2
+    replays (the capture's, then one)."""
+    from echoflow_torch.parallel.dryrun import dp_train_steps
+    from echoflow_torch.train.graph import GraphedStep
+    from echoflow_torch.train.loop import compiled_steps, data_parallel, fit_on_mesh
+
+    train, evaluate = host[:4], host[4:] * 3
+    histories = {}
+    for mode in ("eager", "graphed"):
+        state = data_parallel(create_train_state(0, cfg, device="cuda"))
+        steps = (compiled_steps(state) if mode == "graphed"
+                 else (make_train_step(), make_eval_step()))
+        _zero_launch_counts()
+        decoder_heads.launches = 0
+        t0 = time.perf_counter()
+        state, histories[mode] = fit_on_mesh(state, train, evaluate, log_every=1,
+                                             log_fn=lambda line: None, steps=steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = (decoder_heads.launches, *_launch_counts())
+        replays = [sum(e.replays for e in s.graphs.values()) if isinstance(s, GraphedStep)
+                   else None for s in steps]
+        del steps, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = {m: [h["loss"] for h in hist[:4]] for m, hist in histories.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["graphed"], losses["eager"])]
+    finite = all(np.isfinite(v) for h in histories["graphed"] for v in h.values())
+    sd = {k: v.detach().cpu().numpy()
+          for k, v in create_train_state(0, cfg, device="cpu").model.state_dict().items()}
+    driver = dp_train_steps(0, 1, sd, host[:3])
+    driver_ok = (driver["replays"] == 2 and len(driver["grads"]) == 3 and driver["step"] == 3
+                 and all(np.isfinite(h["loss"]) for h in driver["history"]))
+    del sd, driver["grads"], driver["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(replays=replays, launches=counts, losses=losses, rel=rel, finite=finite,
+               seconds=seconds, driver_ok=driver_ok, driver_replays=driver["replays"],
+               eval=histories["graphed"][-1])
+    log(f"fit_on_mesh on graphs: replays (train, eval) {replays}; launches (K1, K2, K3, K4) "
+        f"{counts}, implied (0, {4 * 31 + 3 * 33}, {4 * 30}, {4 * 62}); losses graphed "
+        f"{[round(x, 6) for x in losses['graphed']]}, eager "
+        f"{[round(x, 6) for x in losses['eager']]}, rel {[f'{x:.1e}' for x in rel]} (the "
+        f"first two held to {LOSS_TOL:.0e}); eval {res['eval']}; {seconds:.2f} s (host clock); "
+        f"dp_train_steps: replays {driver['replays']}, step {driver['step']}, ok {driver_ok}")
+    if replays != [3, 2] or counts != (0, 4 * 31 + 3 * 33, 4 * 30, 4 * 62) or not finite \
+            or max(rel[:2]) > LOSS_TOL or not driver_ok:
+        raise AssertionError(f"fit_on_mesh on the graphed data-parallel steps: {res}")
+    return res
+
+
+def _dp_eval_variant(state, batches):
+    """Phase 13a's eval step on a data-parallel state: each replay's
+    metrics against the eager eval step's on the same batch (EVAL_TOL)."""
+    from echoflow_torch.train.loop import make_eval_step
+
+    fn = make_eval_step()
+    ref = {k: float(v) for k, v in fn(state, batches[2]).items()}
+
+    def compare(g):
+        got = {k: float(v) for k, v in g(state, batches[2]).items()}
+        rel = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in ref)
+        return {"rel": rel}
+
+    res, g = _dp_graph_variant("eval", fn, state, batches, compare)
+    if res["values"]["rel"] > EVAL_TOL:
+        raise AssertionError(f"graphed data-parallel eval step: {res['values']}")
+    return res, g
+
+
+def graph_kernel_nodes(graph):
+    """The kernel nodes of `graph` (a CUDAGraph captured with debug mode on,
+    as a wrapper of `utils/graphs.py` with `debug` set captures) by name
+    (KERNEL_NAMES), read from the graph itself (`cudaGraphDebugDotPrint`):
+    what every replay of it launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # debug_dump announces itself
+            graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    return tuple(text.count(name) for name in KERNEL_NAMES)
+
+
+def phase_graphed_rollouts(inputs):
+    """Phase 13b: phase 7's rollouts (`deform_forback` nearest and bilinear,
+    `deform_images_forback`) through their graphs (`infer/propagate.py`
+    on CUDA tensors), each wrapper cleared first and capturing in debug
+    mode: after the warm-up and the capture, one replay bitwise the eager
+    rollout (`fn.__wrapped__`); the launches of that replay by counter, all
+    four counters set to 0 just before it (K1, K2, K3, K4: 0, 62 or 32, 0,
+    0) and by kernel name among the nodes of the graph the replay ran (the
+    wrapper's graph at the call's key, `graph_kernel_nodes`); the call's
+    capture the one new graph of its wrapper; eager and graphed call times
+    (CUDA events, median of 5); a profiled replay's device busy time, idle
+    share and K2 records. The profiler's records are information here:
+    late in this script's process they have read one K2 fewer than the
+    graph holds (61 of 62), where the counter, the bitwise result and the
+    graph's nodes show every launch."""
+    from echoflow_torch.infer import propagate
+
+    label_ed, label_es, mot, images = inputs
+    calls = {"deform_forback": (propagate.deform_forback, (label_ed, label_es, mot), {}, 0),
+             "deform_forback_bilinear": (propagate.deform_forback, (label_ed, label_es, mot),
+                                         {"mode": "bilinear"}, 2 * 31),
+             "deform_images_forback": (propagate.deform_images_forback, (images, mot), {},
+                                       1 + 31)}
+    wrappers = {id(fn): fn for fn, *_ in calls.values()}.values()
+    for fn in wrappers:
+        fn.clear()
+        fn.debug = True
+    out, bad = {}, []
+    try:
+        for name, (fn, args, kw, want) in calls.items():
+            graphed_call = functools.partial(fn, *args, **kw)
+            eager_call = functools.partial(fn.__wrapped__, *args, **kw)
+            ref = eager_call()
+            held = set(fn.graphs)
+            graphed_call()            # the warm-up
+            graphed_call()            # the capture and its replay
+            key = fn.key(*args, **kw)
+            made = set(fn.graphs) - held
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            decoder_heads.launches = 0
+            got = graphed_call()
+            torch.cuda.synchronize()
+            counts = (decoder_heads.launches, *_launch_counts())     # K1, K2, K3, K4
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+            nodes = graph_kernel_nodes(fn.graphs[key].graph)       # K1, K2, K3 x2, K4
+            eager_ms = cuda_ms(eager_call, reps=5, warmup=1)
+            graphed_ms = cuda_ms(graphed_call, reps=5, warmup=1)
+            wall, busy, named, _ = profile_replay(graphed_call)
+            out[name] = dict(launches=counts, by_name=nodes, bitwise=bitwise,
+                             profiler_records=named[1], graphs_made=len(made),
+                             eager_ms=eager_ms, graphed_ms=graphed_ms, replay_wall_ms=wall,
+                             replay_busy_ms=busy, replay_idle_share=1.0 - busy / wall)
+            log(f"rollout graphs ({name}): bitwise the eager rollout {bitwise}; a replay's "
+                f"launches (K1, K2, K3, K4) {counts} (counters), {nodes} (by name among the "
+                f"nodes of the graph it ran; K3 two names a launch), implied (0, {want}, 0, 0); "
+                f"graphs its calls made {len(made)}; the profiler's K2 records {named[1]}; "
+                f"eager {eager_ms:.3f} ms, graphed {graphed_ms:.3f} ms (CUDA events, median "
+                f"of 5); profiled replay wall {wall:.3f} ms, device busy {busy:.3f} (idle "
+                f"{out[name]['replay_idle_share']:.1%})")
+            if not bitwise or counts != (0, want, 0, 0) or nodes != (0, want, 0, 0) or \
+                    made != {key}:
+                bad.append(name)
+            del got, ref
+    finally:
+        for fn in wrappers:
+            del fn.debug
+            fn.clear()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"graphed rollouts: {bad}")
+    return out
+
+
+def phase_graphed_camus():
+    """Phase 13c: `train_camus_torch.main --synthetic --epochs 2` on the
+    card through its graphs (`train/generic.py`: the "fold" and "fold +
+    update" graphs of the step, made once a run and replayed across the
+    epochs, and the validation forward's) against the same run eager (the
+    wrappers swapped for the functions they wrap), with and without
+    `--acnn`: losses within CAMUS_TRAIN_TOL, graphs and replays of each
+    wrapper, K1-K4 launches (0: the SegNet runs no warp)."""
+    import train_camus_torch
+    from echoflow_torch.train import generic
+
+    real = generic.GraphedFunction
+    out, bad = {}, []
+    for acnn in (False, True):
+        argv = ["--synthetic", "--epochs", "2", "--device", "cuda"] + (["--acnn"] if acnn else [])
+        generic.GraphedFunction = lambda fn, **kw: fn
+        try:
+            t0 = time.perf_counter()
+            _, _, eager_losses = train_camus_torch.main(argv)
+            eager_s = time.perf_counter() - t0
+        finally:
+            generic.GraphedFunction = real
+        made = []
+
+        def recording(fn, **kw):
+            made.append(real(fn, **kw))
+            return made[-1]
+
+        _zero_launch_counts()
+        decoder_heads.launches = 0
+        generic.GraphedFunction = recording
+        try:
+            t0 = time.perf_counter()
+            _, _, losses = train_camus_torch.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            generic.GraphedFunction = real
+        counts = (*_launch_counts(), decoder_heads.launches)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_losses))
+        graphs = [(len(g.graphs), sum(e.replays for e in g.graphs.values())) for g in made]
+        key = "acnn" if acnn else "plain"
+        out[key] = dict(losses=losses, eager_losses=eager_losses, rel=rel, graphs=graphs,
+                        launches=counts, seconds=seconds, eager_seconds=eager_s)
+        log(f"camus graphs ({key}): losses graphed {[round(x, 5) for x in losses]}, eager "
+            f"{[round(x, 5) for x in eager_losses]}, rel {rel:.2e} (limit "
+            f"{CAMUS_TRAIN_TOL:.0e}); wrappers made (graphs, replays) {graphs}; launches "
+            f"(K2, K3, K4, K1) {counts}; {seconds:.2f} s graphed, {eager_s:.2f} s eager "
+            f"(host clock, set-up included)")
+        if rel > CAMUS_TRAIN_TOL or any(counts) or not graphs or \
+                any(n < 1 or r < 1 for n, r in graphs):
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"the graphed CAMUS trainer: {bad}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1932,6 +2431,13 @@ def main():
                  "native_normalizer": timed("11e", phase_native_normalizer, main_path_videos())}
     graphs = timed("12", phase_graphs)
     trainer = timed("12f", phase_graphed_trainer)
+    # Phase 12's graphs went with their states; their pools go back to the card here.
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before phase 13: {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    dp_graphs, dp_fit = timed("13a", phase_dp_graphs)
+    rollout_graphs = timed("13b", phase_graphed_rollouts, clips.pop("rollout_inputs"))
+    camus_graphs = timed("13c", phase_graphed_camus)
     log(f"seconds by phase: {seconds}")
 
     main_variant = k1[False]
@@ -1967,6 +2473,15 @@ def main():
         "graph_launches": {v: r["k1_launches"] for v, r in graphs.items()},
         "graph_launches_by_name": {v: r["profiled_launches"][0] for v, r in graphs.items()},
         "trainer_launches": trainer["k1_launches"],
+        # Phase 13a: a replay of each graphed data-parallel step (counter,
+        # by name) and `fit_on_mesh` on them (counter); 13b: one replay of
+        # each rollout's graph (counter, and by name among its nodes).
+        "dp_graph_launches": {v: r["k1_launches"] for v, r in dp_graphs.items()},
+        "dp_graph_launches_by_name": {v: r["profiled_launches"][0]
+                                      for v, r in dp_graphs.items()},
+        "dp_fit_launches": dp_fit["launches"][0],
+        "rollout_graph_launches": sum(r["launches"][0] for r in rollout_graphs.values()),
+        "rollout_graph_launches_by_name": sum(r["by_name"][0] for r in rollout_graphs.values()),
     }]
     replaces = {"warp_forward": "echoflow/ops/pallas/warp_kernel.py:67",
                 "warp_image_grad": "echoflow/ops/pallas/warp_kernel.py:81",
@@ -1994,7 +2509,7 @@ def main():
             # counter (each replay adds the launches its capture made); by
             # kernel name in one profiled replay (K3: two kernels a launch).
             "graph_launches": {v: sum(rec["launches"][list(replaces).index(name)]
-                                      for rec in r["runs"][2]["steps"])
+                                      for rec in r["runs"][-1]["steps"])
                                for v, r in graphs.items()},
             "graph_launches_by_name": {
                 v: r["profiled_launches"][1 + list(replaces).index(name)]
@@ -2002,6 +2517,20 @@ def main():
             # Phase 12f: the trainer's run (graphed train and eval steps),
             # from the counter.
             "trainer_launches": trainer["launches"][list(replaces).index(name)],
+            # Phase 13a: one replay of each graphed data-parallel step, from
+            # the counter and by kernel name (K3: two a launch); 13b: one
+            # replay of each rollout's graph, counter and nodes by name.
+            "dp_graph_launches": {v: r["graph_launches"][0][list(replaces).index(name)]
+                                  for v, r in dp_graphs.items()},
+            "dp_graph_launches_by_name": {
+                v: r["profiled_launches"][1 + list(replaces).index(name)]
+                for v, r in dp_graphs.items()},
+            # `fit_on_mesh` on the graphed steps (4 train, 3 eval calls), counters.
+            "dp_fit_launches": dp_fit["launches"][1 + list(replaces).index(name)],
+            "rollout_graph_launches": sum(r["launches"][1 + list(replaces).index(name)]
+                                          for r in rollout_graphs.values()),
+            "rollout_graph_launches_by_name": sum(r["by_name"][1 + list(replaces).index(name)]
+                                                  for r in rollout_graphs.values()),
         })
     # Phase 7: K2 in the bilinear rollouts of infer/propagate.py.
     next(k for k in kernels if k["name"] == "warp_forward").update(
@@ -2015,7 +2544,12 @@ def main():
                              for k, v in precision["steps"].items()) + "; graphed steps, "
         f"median ms eager / graphed: " + ", ".join(
             f"{k} {v['eager_median_ms']:.1f} / {v['graphed_median_ms']:.1f}"
-            for k, v in graphs.items()) + f" ({smi})")
+            for k, v in graphs.items()) + "; graphed DP steps, median ms eager / graphed: "
+        + ", ".join(f"{k} {v['eager_median_ms']:.1f} / {v['graphed_median_ms']:.1f}"
+                    for k, v in dp_graphs.items()) + "; rollouts ms eager / graphed: "
+        + ", ".join(f"{k} {v['eager_ms']:.3f} / {v['graphed_ms']:.3f}"
+                    for k, v in rollout_graphs.items()) + f"; CAMUS graphed vs eager loss rel "
+        + ", ".join(f"{k} {v['rel']:.1e}" for k, v in camus_graphs.items()) + f" ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

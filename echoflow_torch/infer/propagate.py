@@ -10,6 +10,14 @@ CPU; "nearest" is `warp_nearest_border`. echoflow's `lax.scan` chains are
 Python loops over the chain steps, one warp launch a step for all N
 samples; the single-step warps of every frame in `deform_images_forback`
 are one warp over (T-1) N images.
+
+On CUDA tensors each rollout runs as CUDA graphs, as echoflow compiles each
+scan once (`utils/graphs.GraphedFunction`): one graph for each shape,
+dtype, `mode` and index, made at the second call with them (the first runs
+eagerly) and replayed after that, bitwise the eager rollout (K2 adds in a
+fixed order). Each rollout keeps the graphs of its 8 most recently used
+keys (`fn.clear()` drops them all). `fn.__wrapped__` is the eager rollout.
+On the CPU each is its eager rollout.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from echoflow_torch.ops.warp import warp_image_with_offsets
+from echoflow_torch.utils.graphs import GraphedFunction
 
 
 def _chain(carry: torch.Tensor, flows, mode: str) -> torch.Tensor:
@@ -29,6 +38,7 @@ def _chain(carry: torch.Tensor, flows, mode: str) -> torch.Tensor:
     return torch.stack(steps) if steps else carry.new_empty((0, *carry.shape))
 
 
+@GraphedFunction
 def apply_sequence_deformation(source: torch.Tensor, motion: torch.Tensor,
                                start_index: int, end_index: int,
                                mode: str = "bilinear",
@@ -45,6 +55,7 @@ def apply_sequence_deformation(source: torch.Tensor, motion: torch.Tensor,
     return out
 
 
+@GraphedFunction
 def deform_forback(label_ed: torch.Tensor, label_es: torch.Tensor,
                    motion: torch.Tensor, mode: str = "nearest"):
     """Chained rollouts: ED carried forward through every frame, ES carried
@@ -61,6 +72,7 @@ def deform_forback(label_ed: torch.Tensor, label_es: torch.Tensor,
     return _chain(label_ed, fwd_flows, mode), _chain(label_es, bwd_flows, mode)
 
 
+@GraphedFunction
 def deform_images_forback(images: torch.Tensor, motion: torch.Tensor,
                           mode: str = "bilinear"):
     """Single-step warps of every frame (reference

@@ -68,9 +68,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
     the fused BatchNorm gradient
     dx = w / sigma * (dy - sum(dy) / N - x_hat * sum(dy * x_hat) / N), the
     two sums accumulated in float64 and all-reduced, one collective; the
-    weight and bias get this rank's part (DDP averages the ranks'). The
-    sums in float64 keep the cancellation in dx accurate: the same step
-    through autograd of the fp32 formula was 25x further from float64.
+    weight and bias get this rank's part (`parallel.average_gradients`
+    averages the ranks'). The sums in float64 keep the cancellation in dx
+    accurate: the same step through autograd of the fp32 formula was 25x
+    further from float64.
     A bf16 input is reduced and normalized in fp32 (`_stat_dtype`), as in
     one process, and its output and dx are bf16."""
 

@@ -18,17 +18,21 @@ run on rank 0, whose engine holds one replica a device (under gloo, the
 CPU n times). The functions each rank runs live here, not in a test
 module: a spawned rank re-imports the module of its function.
 
-`dp_train_steps` and `batchnorm_on_shard` are what the parity tests run on
-each rank.
+`dp_train_steps`, `batchnorm_on_shard` and `dp_graphed_calls` are what
+the parity tests run on each rank.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from echoflow_torch.parallel.launch import run_ranks
 from echoflow_torch.parallel.mesh import shard_batch
+from echoflow_torch.train.graph import GraphedStep
+from echoflow_torch.utils import graphs
 
 
 def _rank_device(rank: int) -> torch.device:
@@ -57,11 +61,14 @@ def dp_train_steps(rank: int, world: int, state_dict: dict, batches: list,
     (float64 runs the whole step in float64, outputs included), computing
     in `TrainConfig.compute_dtype` `compute_dtype`, at the optimizer's
     defaults (lr 1e-4), the metrics logged every step (to a
-    `MetricsLogger` at `log_path` on rank 0). Returns the history and the
-    log lines, and on rank 0 each step's gradients and the final state
-    dict (numpy); every rank returns the sums of its final state's leaves,
-    which must agree."""
-    from echoflow_torch.train.loop import (TrainConfig, create_train_state, fit_on_mesh,
+    `MetricsLogger` at `log_path` on rank 0), through `compiled_steps`:
+    the eager steps under gloo, CUDA graphs under NCCL. Returns the
+    history, the log lines and the replays of the train step's graphs (0
+    for the eager step), and on rank 0 each step's gradients, read after
+    the step returns, and the final state dict (numpy); every rank returns
+    the sums of its final state's leaves, which must agree."""
+    from echoflow_torch.train.loop import (TrainConfig, compiled_steps, create_train_state,
+                                           data_parallel, fit_on_mesh,
                                            make_ed_es_only_train_step, make_train_step)
     from echoflow_torch.utils.metrics_log import MetricsLogger
 
@@ -77,23 +84,26 @@ def dp_train_steps(rank: int, world: int, state_dict: dict, batches: list,
     inner = (make_train_step(remat=remat) if recipe == "clasfv"
              else make_ed_es_only_train_step(remat=remat))
     grads = []
-
-    def recording_step():
-        def step(state, batch):
-            state, metrics = inner(state, batch)
-            if rank == 0:
-                grads.append({k: p.grad.detach().cpu().numpy()
-                              for k, p in state.model.named_parameters()})
-            return state, metrics
-        return step
-
     host = [{k: v.astype(dtype) if "video" in k else v for k, v in b.items()} for b in batches]
     lines = []
+    state = data_parallel(state)
+    train, evaluate = compiled_steps(state, lambda: inner)
+
+    def recording_step(state, batch):
+        # After the step, outside any graph: a capture may not copy to the host.
+        state, metrics = train(state, batch)
+        if rank == 0:
+            # Copies: the gradients are views of a buffer the next step zeroes.
+            grads.append({k: p.grad.detach().to("cpu", copy=True).numpy()
+                          for k, p in state.model.named_parameters()})
+        return state, metrics
+
     state, history = fit_on_mesh(state, host, log_every=1, log_fn=lines.append,
                                  metrics_logger=MetricsLogger(log_path) if log_path else None,
-                                 step_factory=recording_step)
+                                 steps=(recording_step, evaluate))
+    replays = sum(e.replays for e in getattr(train, "graphs", {}).values())
     out = {"history": history, "lines": lines, "grads": grads, "step": state.step,
-           "leaf_sums": _leaf_sums(state.model)}
+           "leaf_sums": _leaf_sums(state.model), "replays": replays}
     if rank == 0:
         out["state"] = {k: v.cpu().numpy() for k, v in state.model.state_dict().items()}
     return out
@@ -122,6 +132,109 @@ def batchnorm_on_shard(rank: int, world: int, x: np.ndarray, grad_y: np.ndarray,
     return {"y": y.detach().numpy(), "dx": xs.grad.numpy(), "dweight": bn.weight.grad.numpy(),
             "dbias": bn.bias.grad.numpy(), "running_mean": bn.running_mean.numpy(),
             "running_var": bn.running_var.numpy()}
+
+
+class StandInGraphs(GraphedStep):
+    """A `train/graph.GraphedStep` with its CUDA primitives stood in for on
+    the CPU, for a data-parallel state on gloo (which no CUDA graph holds):
+    the warm-up runs the step; the capture runs the step's Python once, as
+    a capture does, and puts every tensor of the state back (a capture
+    computes nothing); a replay runs the step again with the effects a
+    replay does not have taken back (the update count, the launch
+    counters), so the wrapper must do those. `calls` logs "warm-up",
+    "capture" and "replay" in order; `lrs` the LR each replay found, which
+    the wrapper wrote."""
+
+    def __init__(self, step_fn, state):
+        super().__init__(step_fn, state, torch.device("cpu"))
+        self.calls, self.lrs = [], []
+
+    def _run_on_side_stream(self, fn):
+        self.calls.append("warm-up")
+        return fn()
+
+    def _capture(self, fn):
+        self.calls.append("capture")
+        saved = [(t, t.clone()) for t in _state_tensors(self.state)]
+        out = fn()
+        with torch.no_grad():
+            for t, v in saved:
+                t.copy_(v)
+
+        def replay():
+            self.calls.append("replay")
+            self.lrs.append(float(self.state.optimizer.param_groups[0]["lr"]))
+            step, counts = self.state.step, graphs._launches()
+            _fill(out, fn())
+            self.state.step = step
+            for (mod, name), count in zip(graphs._COUNTERS, counts):
+                getattr(mod, name).launches = count
+        return out, SimpleNamespace(replay=replay)
+
+
+def _state_tensors(state) -> list:
+    """Every tensor a train step of `state` writes: parameters, buffers,
+    the gradient buffer, the optimizer's LR and state."""
+    out = [*state.model.parameters(), *state.model.buffers()]
+    out += [] if state.grads is None else [state.grads]
+    for group in state.optimizer.param_groups:
+        out += [group["lr"]] if isinstance(group["lr"], torch.Tensor) else []
+    out += [v for st in state.optimizer.state.values() for v in st.values()
+            if isinstance(v, torch.Tensor)]
+    return out
+
+
+def _fill(static, fresh):
+    """Copy the tensors of `fresh` into those of `static` (same structure)."""
+    if isinstance(static, torch.Tensor):
+        static.copy_(fresh)
+    elif isinstance(static, dict):
+        for k in static:
+            _fill(static[k], fresh[k])
+    else:
+        for a, b in zip(static, fresh):
+            _fill(a, b)
+
+
+def dp_graphed_calls(rank: int, world: int, batches: list, lr_drop_step: int) -> dict:
+    """The fused train step and the eval step of a data-parallel state on
+    this rank through `StandInGraphs`, against the eager steps of a twin
+    state from the same init, over the global host `batches` (the last one
+    for the eval step, three calls), Adam's LR a tensor that drops at
+    update `lr_drop_step`: each wrapper's calls, the LR of each replay, the
+    update count after each call, and whether the metrics and the final
+    parameters are bitwise the eager ones."""
+    from echoflow_torch.train.loop import (TrainConfig, create_train_state, data_parallel,
+                                           make_eval_step, make_train_step)
+
+    n, _, t, h, w = batches[0]["video"].shape
+    cfg = TrainConfig(clip_length=t, image_size=(h, w), batch_size=n, lr_drop_step=lr_drop_step)
+
+    def dp_state():
+        state = create_train_state(0, cfg, device="cpu")
+        state.optimizer = torch.optim.Adam(state.model.parameters(), lr=torch.tensor(cfg.lr),
+                                           betas=(0.9, 0.999), eps=1e-8, foreach=False)
+        return data_parallel(state)
+
+    local = [_to_torch(shard_batch(b, rank, world), "cpu", torch.float32) for b in batches]
+    eager, state = dp_state(), dp_state()
+    train, evaluate = StandInGraphs(make_train_step(), state), StandInGraphs(
+        make_eval_step(), state)
+    step, eval_step = make_train_step(), make_eval_step()
+    same, steps = True, []
+    for batch in local[:-1]:
+        eager, want = step(eager, batch)
+        state, got = train(state, batch)
+        same &= all(torch.equal(got[k], want[k]) for k in want)
+        steps.append(state.step)
+    evals = [evaluate(state, local[-1]) for _ in range(3)]
+    want = eval_step(eager, local[-1])
+    return {"calls": train.calls, "eval_calls": evaluate.calls, "lrs": train.lrs,
+            "steps": steps, "same_metrics": same,
+            "same_eval": all(torch.equal(m[k], want[k]) for m in evals for k in want),
+            "same_params": all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                                                  eager.model.parameters())),
+            "loss": float(want["loss"])}
 
 
 def _dryrun_batch(n: int, t: int, h: int, w: int, rng) -> dict:

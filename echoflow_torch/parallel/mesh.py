@@ -6,7 +6,7 @@ The port runs one process per device instead (`torchrun`, or
 `parallel/launch.run_ranks`): each rank holds a replica of the state and
 takes its contiguous shard of every global batch, which is the layout
 `PartitionSpec("data")` gives. `train/loop.fit_on_mesh` does the rest
-(DistributedDataParallel, global BatchNorm, the batch-coupled loss terms).
+(the gradient all-reduce, global BatchNorm, the batch-coupled loss terms).
 """
 
 from __future__ import annotations
@@ -87,6 +87,17 @@ def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
     gradient of the sum of every rank's objective. Neither direction waits
     for the device."""
     return _AllReduceSum.apply(tensor, group)
+
+
+def average_gradients(flat: torch.Tensor, group) -> torch.Tensor:
+    """`flat` (the gradients of one rank in one buffer) replaced in place by
+    its mean over the ranks of `group`: one all-reduce, which does not wait
+    for the device and which a CUDA graph of the step holds as a node. Each
+    rank's part is divided by the world size before the sum, as
+    DistributedDataParallel divides its buckets."""
+    flat.div_(dist.get_world_size(group))
+    dist.all_reduce(flat, group=group)
+    return flat
 
 
 def host_shard_indices(total: int, process_index: int | None = None,

@@ -13,6 +13,13 @@ here the model is an `nn.Module` and `MultiSteps` holds what optax's
 `MultiSteps(adamw)` state holds (the accumulated gradient, the mini-step
 count, Adam's moments), so passing it back into the next call carries the
 accumulation across epochs, as echoflow's `opt_state` does.
+
+On the card the train step and the validation forward run as CUDA graphs
+(`utils/graphs.GraphedFunction`), as echoflow jits both: the step as two
+graphs, "fold" and "fold + update", which the host picks by the mini-step
+count it keeps; they are made once for each model, optimizer and
+criterion and replayed across epochs. The per-step `float(loss)` and the
+host copy of the outputs stay, as in echoflow.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ import torch.nn as nn
 from echoflow_torch.metrics.camus import camus_dice_by_name, dict_extend_values
 from echoflow_torch.models.flax_layers import SameConv2d, SameConvTranspose2d
 from echoflow_torch.train.camus_losses import cross_entropy
+from echoflow_torch.train.graph import optimizer_bindings
 from echoflow_torch.utils.cleanup import cleanup_segmentation
+from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.graphs import GraphedFunction, model_memory
 
 
 # --------------------------------------------------------------- data plumbing
@@ -93,6 +103,7 @@ class BetterLoss:
     def __init__(self, weight=None):
         self.weight = None if weight is None else torch.as_tensor(
             np.asarray(weight, np.float32))
+        self._on = {}   # the weight on each device, copied once (a graph cannot copy it)
 
     def __call__(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         logp = torch.log_softmax(logits, dim=1)
@@ -101,7 +112,9 @@ class BetterLoss:
         if self.weight is None:
             return -torch.mean(picked)
         # torch's weighted CE: sum(w_y * nll) / sum(w_y).
-        w = self.weight.to(logits.device)[labels]
+        if logits.device not in self._on:
+            self._on[logits.device] = upload(self.weight, logits.device)
+        w = self._on[logits.device][labels]
         return -torch.sum(w * picked) / torch.sum(w)
 
 
@@ -143,45 +156,107 @@ def foreground_dice_loss(logits: torch.Tensor, one_hot: torch.Tensor) -> torch.T
 
 class MultiSteps:
     """`optax.MultiSteps(optax.adamw(lr, weight_decay=wd), every_k_schedule=k)`
-    over `torch.optim.AdamW`: `step()` after each backward folds the
-    gradients into their running mean (optax's acc + (g - acc) / (n + 1));
-    every k-th call makes one AdamW update with the mean and resets it, and
-    the parameters do not move in between. AdamW as optax's: betas (0.9,
-    0.999), eps 1e-8, every parameter (biases too) decayed by lr * wd."""
+    over `torch.optim.AdamW`: after each backward, `fold(advance())` folds
+    the gradients into their running mean (optax's acc + (g - acc) /
+    (n + 1)); every k-th mini-step makes one AdamW update with the mean and
+    resets it, and the parameters do not move in between. AdamW as optax's:
+    betas (0.9, 0.999), eps 1e-8, every parameter (biases too) decayed by
+    lr * wd.
+
+    The mini-step count is kept twice: `mini_step` on the host, which says
+    whether the next step updates (so `run_training` picks the "fold" or
+    the "fold + update" graph), and `count`, n + 1 as a 0-d tensor beside
+    the parameters, which the fold divides by (a graph replays the division
+    it captured, so the divisor cannot be a host number). On the card
+    AdamW is capturable with its LR a 0-d tensor there, and the gradients
+    exist from the start and are zeroed in place, so a graph holds them; on
+    the CPU `zero_grad` sets them to None."""
 
     def __init__(self, params, every_k: int = 1, learning_rate: float = 1e-3,
                  weight_decay: float = 1e-5):
         self.params = [p for p in params if p.requires_grad]
-        self.inner = torch.optim.AdamW(self.params, lr=learning_rate, betas=(0.9, 0.999),
-                                       eps=1e-8, weight_decay=weight_decay)
+        device = self.params[0].device
+        self.on_card = device.type == "cuda"
+        lr = torch.full((), learning_rate, device=device) if self.on_card else learning_rate
+        self.inner = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay, capturable=self.on_card)
         self.every_k = every_k
         self.mini_step = 0
+        self.count = torch.zeros((), dtype=self.params[0].dtype, device=device)
         self.acc = [torch.zeros_like(p) for p in self.params]
+        if self.on_card:
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.steps: dict = {}   # `run_training`'s step of each (model, criterion)
 
     def zero_grad(self):
-        self.inner.zero_grad(set_to_none=True)
+        self.inner.zero_grad(set_to_none=not self.on_card)
+
+    def advance(self) -> bool:
+        """Whether the step being taken makes the update; moves `mini_step`
+        on to the next one."""
+        update = self.mini_step == self.every_k - 1
+        self.mini_step = 0 if update else self.mini_step + 1
+        return update
 
     @torch.no_grad()
-    def step(self):
+    def fold(self, update: bool):
+        """The device work of a step: the gradients folded into their mean
+        and, with `update`, the AdamW update with it."""
+        self.count.add_(1)
         for p, acc in zip(self.params, self.acc):
             if p.grad is not None:
-                acc.add_((p.grad - acc) / (self.mini_step + 1))
+                acc.add_((p.grad - acc) / self.count)
             else:
-                acc.sub_(acc / (self.mini_step + 1))
-        if self.mini_step < self.every_k - 1:
-            self.mini_step += 1
+                acc.sub_(acc / self.count)
+        if not update:
             return
         for p, acc in zip(self.params, self.acc):
-            p.grad = acc.clone()
+            if p.grad is None:
+                p.grad = acc.clone()
+            else:
+                p.grad.copy_(acc)
             acc.zero_()
+        self.count.zero_()
         self.inner.step()
-        self.mini_step = 0
+
+    def bindings(self, update: bool) -> tuple:
+        """The addresses of the tensors a graph of `fold(update)` holds."""
+        ptrs = [t.data_ptr() for t in (*self.acc, self.count)]
+        ptrs += [-1 if p.grad is None else p.grad.data_ptr() for p in self.params]
+        return tuple(ptrs + optimizer_bindings(self.inner) if update else ptrs)
 
 
 # ------------------------------------------------------------- generic loops
 
 def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
+
+
+def _model_bindings(model) -> tuple:
+    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
+
+
+def _train_step(model: nn.Module, criterion: Callable, optimizer: MultiSteps):
+    """`step(inputs, targets, update)` -> (loss, outputs): one mini-step
+    (the backward, `optimizer.fold(update)`, then the model's outputs on
+    the inputs after it), made once for each model and criterion of the
+    optimizer: as CUDA graphs on the card, the eager step on the CPU."""
+    key = (model, criterion)
+    if key not in optimizer.steps:
+        def step(inputs, targets, update):
+            optimizer.zero_grad()
+            loss = criterion(model(inputs), targets)
+            loss.backward()
+            optimizer.fold(update)
+            with torch.no_grad():
+                return loss.detach(), model(inputs)
+
+        optimizer.steps[key] = GraphedFunction(
+            step, memory=model_memory(model, _device_of(model)),
+            bindings=lambda update: _model_bindings(model) + optimizer.bindings(update))
+    return optimizer.steps[key]
 
 
 def _dices(dices, outputs, labels):
@@ -213,17 +288,14 @@ def run_training(model: nn.Module, data_iterator, effective_batchsize: int = 1,
     dices = {}
     example = None
     model.train()
+    step = _train_step(model, criterion, optimizer)
     for data in data_iterator:
         inputs = torch.as_tensor(np.asarray(data[in_key], np.float32)).to(device)
         targets = torch.as_tensor(np.asarray(data[out_key])).to(device)
-        optimizer.zero_grad()
-        loss = criterion(model(inputs), targets)
-        loss.backward()
-        optimizer.step()
-        running += float(loss.detach())
+        loss, outputs = step(inputs, targets, update=optimizer.advance())
+        running += float(loss)
         count += 1
-        with torch.no_grad():
-            outputs = model(inputs).cpu().numpy()
+        outputs = outputs.cpu().numpy()
         pred_maps = cleanup_segmentation(np.argmax(outputs, axis=1)) if do_cleaning else None
         if do_dice:
             dices = _dices(dices, pred_maps if pred_maps is not None else outputs,
@@ -242,10 +314,18 @@ def run_validation(model: nn.Module, data_iterator, criterion: Callable = cross_
                    keys=("inputs", "outputs"), do_dice: bool = False,
                    do_cleaning: bool = False, return_all: bool = False):
     """One validation pass (reference run_validation /
-    run_validation_returnAll, torch_utils.py:451-600)."""
+    run_validation_returnAll, torch_utils.py:451-600). On the card the
+    forward and the criterion run as CUDA graphs, made for this pass."""
     in_key, out_key = keys
     device = _device_of(model)
     model.eval()
+
+    def forward(inputs, targets):
+        outputs = model(inputs)
+        return criterion(outputs, targets), outputs
+
+    forward = GraphedFunction(forward, memory=model_memory(model, device),
+                              bindings=lambda: _model_bindings(model))
     running = 0.0
     count = 0
     dices = {}
@@ -254,8 +334,8 @@ def run_validation(model: nn.Module, data_iterator, criterion: Callable = cross_
     for data in data_iterator:
         inputs = torch.as_tensor(np.asarray(data[in_key], np.float32)).to(device)
         targets = torch.as_tensor(np.asarray(data[out_key])).to(device)
-        outputs = model(inputs)
-        running += float(criterion(outputs, targets))
+        loss, outputs = forward(inputs, targets)
+        running += float(loss)
         count += 1
         out_np = outputs.cpu().numpy()
         out_np_maps = cleanup_segmentation(np.argmax(out_np, axis=1)) if do_cleaning else None

@@ -20,12 +20,14 @@ BatchNorm's running statistics a second time.
 
 `fit` runs on the model's device. `fit_on_mesh` is echoflow's data
 parallelism over torch.distributed: one process per device, each rank
-taking its contiguous shard of every global batch, under
-`DistributedDataParallel`, with BatchNorm's statistics, the OTA smoothness
-and the logged metrics computed over the global batch, so a step on W
-ranks of B/W samples is the step on one device with the whole batch B
-(what GSPMD gives echoflow on a `data` mesh; the reference's DataParallel
-kept per-replica BatchNorm statistics).
+taking its contiguous shard of every global batch, the gradients averaged
+over the ranks by one all-reduce after the backward (what XLA inserts into
+echoflow's step on a `data` mesh), with BatchNorm's statistics, the OTA
+smoothness and the logged metrics computed over the global batch, so a
+step on W ranks of B/W samples is the step on one device with the whole
+batch B (the reference's DataParallel kept per-replica BatchNorm
+statistics). On the card both run their steps as CUDA graphs
+(`compiled_steps`, `train/graph.py`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from echoflow_torch.models.r2plus1d import create_model, frozen_running_stats, sync_batchnorm
-from echoflow_torch.parallel.mesh import shard_batch
+from echoflow_torch.parallel.mesh import average_gradients, shard_batch
 from echoflow_torch.train.graph import graphed
 from echoflow_torch.train.losses import (
     clasfv_total_loss,
@@ -72,17 +74,16 @@ class TrainState:
     schedule, the number of updates taken, and the training generator. No
     step draws from the generator yet; it is checkpointed and restored so a
     resumed run continues the same stream. Under data parallelism
-    (`data_parallel`) `replica` is the model's forward wrapped in
-    DistributedDataParallel and `group` the process group of the global
-    BatchNorm, the coupled loss term and the metrics; both are None in a
-    single process."""
+    (`data_parallel`) `group` is the process group of the ranks and `grads`
+    the flat buffer whose views are the parameters' gradients; both are
+    None in a single process."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
     generator: torch.Generator | None = field(default=None, repr=False)
-    replica: torch.nn.Module | None = field(default=None, repr=False)
     group: object = field(default=None, repr=False)
+    grads: torch.Tensor | None = field(default=None, repr=False)
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -161,12 +162,20 @@ def _apply_update(state: TrainState, total):
 
     On the card the gradients stay the same tensors from step to step
     (zeroed in place; the backward adds into them), as a CUDA graph of the
-    step needs. A tensor LR is written here, except while a graph is
-    captured: its wrapper writes it before each replay (`train/graph.py`)."""
+    step needs. Under data parallelism they are views of `state.grads`,
+    zeroed in place on every device and averaged over the ranks after the
+    backward (`parallel.average_gradients`). A tensor LR is written here,
+    except while a graph is captured: its wrapper writes it before each
+    replay (`train/graph.py`)."""
     opt = state.optimizer
     with record_function("echoflow_torch.train.backward"):
-        opt.zero_grad(set_to_none=not total.is_cuda)
+        if state.grads is not None:
+            state.grads.zero_()
+        else:
+            opt.zero_grad(set_to_none=not total.is_cuda)
         total.backward()
+        if state.grads is not None:
+            average_gradients(state.grads, state.group)
     with record_function("echoflow_torch.train.optimizer"):
         lr = state.schedule(state.step)
         for group in opt.param_groups:
@@ -235,11 +244,8 @@ def _model_forward(model, video, remat: bool):
 
 
 def _forwards(state: TrainState, *videos, remat: bool = False):
-    """The model's train-mode forward of each video batch: through the DDP
-    replica under data parallelism (one DDP call a step), else the model."""
+    """The model's train-mode forward of each video batch."""
     state.model.train()
-    if state.replica is not None:
-        return state.replica(*videos, remat=remat)
     return [_model_forward(state.model, v, remat) for v in videos]
 
 
@@ -353,13 +359,12 @@ def prefetch_to_device(batch_iterator, device, depth: int = 2):
 def compiled_steps(state: TrainState, step_factory=None, eval_step_factory=None):
     """(train_step, eval_step) of the recipe (`step_factory`, default
     `make_train_step`; `eval_step_factory`, default `make_eval_step`) as
-    `fit` runs them for `state`: on the card in one process, each as CUDA
-    graphs (`graph.graphed`), as echoflow runs both under `jax.jit`; on the
-    CPU and under data parallelism, the eager steps."""
+    `fit` runs them for `state`: on the card, in one process or under data
+    parallelism, each as CUDA graphs (`graph.graphed`), as echoflow runs
+    both under `jax.jit`; on the CPU, the eager steps."""
     train_step = (step_factory or make_train_step)()
     eval_step = (eval_step_factory or make_eval_step)()
-    if next(state.model.parameters()).is_cuda and state.replica is None \
-            and state.group is None:
+    if next(state.model.parameters()).is_cuda:
         return graphed(train_step, state), graphed(eval_step, state)
     return train_step, eval_step
 
@@ -404,52 +409,44 @@ def fit(state: TrainState, train_batches, eval_batches=None, log_every: int = 50
     return state, history
 
 
-class _Replicas(torch.nn.Module):
-    """The model's forward of one or more video batches in one call, so that
-    DistributedDataParallel sees one forward a step in both recipes (the
-    ed-or-es-only recipe runs the model twice)."""
-
-    def __init__(self, model):
-        super().__init__()
-        self.model = model
-
-    def forward(self, *videos, remat: bool = False):
-        return [_model_forward(self.model, v, remat) for v in videos]
-
-
 def data_parallel(state: TrainState, group=None) -> TrainState:
     """This rank's state for data-parallel training over `group` (default:
     the whole default process group, which must be up: `init_distributed`).
-    Every rank of the default group calls it, in the same order.
+    Every rank of the group calls it, in the same order.
 
-    - The forward is wrapped in `DistributedDataParallel` (rank 0's
-      parameters and buffers are broadcast once; gradients are averaged).
-    - BatchNorm, the coupled loss term and the metrics reduce over a second
-      communicator of the same ranks, so their collectives never interleave
-      with DDP's gradient buckets.
-    - The parameters the forward never reads (the Kinetics fc) are left out
-      of DDP (`requires_grad` off): DDP would wait for their gradients.
-      `_apply_update` gives them a zero gradient on every rank, as in one
-      process, so Adam's state stays identical across ranks.
+    - Rank 0's parameters and buffers are broadcast once (the group's
+      communicator is made here, before any step or capture).
+    - Every parameter's gradient becomes a view of one flat buffer,
+      `state.grads`, which `_apply_update` zeroes in place and averages
+      over the ranks with one all-reduce after the backward (what XLA
+      inserts into echoflow's step, and what a CUDA graph of the step can
+      hold: the gradients never move). The Kinetics fc, which the forward
+      never reads, gets 0 on every rank, as in one process.
+    - BatchNorm, the coupled loss term and the metrics reduce over the same
+      group, in program order on every rank.
     - BatchNorm's running statistics are the global batch's on every rank,
-      so DDP does not broadcast buffers."""
-    if state.replica is not None:
+      so no buffer is broadcast after this."""
+    if state.group is not None:
         return state
     import torch.distributed as dist
-    from torch.nn.parallel import DistributedDataParallel
 
     if not dist.is_initialized():
         raise RuntimeError("data_parallel: no process group (parallel.init_distributed)")
     group = group or dist.group.WORLD
-    reduce_group = dist.new_group(dist.get_process_group_ranks(group))
     model = state.model
-    model.r2plus1d_model.fc.requires_grad_(False)
-    sync_batchnorm(model, reduce_group)
-    device = next(model.parameters()).device
-    state.replica = DistributedDataParallel(
-        _Replicas(model), device_ids=[device] if device.type == "cuda" else None,
-        process_group=group, broadcast_buffers=False)
-    state.group = reduce_group
+    source = dist.get_process_group_ranks(group)[0]
+    with torch.no_grad():
+        for t in (*model.parameters(), *model.buffers()):
+            dist.broadcast(t, src=source, group=group)
+    sync_batchnorm(model, group)
+    params = [p for p in model.parameters() if p.requires_grad]
+    flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
+                       device=params[0].device)
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    state.group, state.grads = group, flat
     return state
 
 
@@ -459,7 +456,7 @@ def _sharded(batches, rank: int, world: int):
 
 def fit_on_mesh(state: TrainState, train_batches, eval_batches=None, group=None,
                 log_every: int = 50, log_fn=print, metrics_logger=None,
-                prefetch_depth: int = 2, step_factory=None, eval_step_factory=None):
+                prefetch_depth: int = 2, steps=None):
     """`fit` data-parallel over `group` (default: the default process
     group), one process per device (echoflow's `fit_on_mesh` over a `data`
     mesh). `train_batches` and `eval_batches` yield the *global* host
@@ -468,7 +465,10 @@ def fit_on_mesh(state: TrainState, train_batches, eval_batches=None, group=None,
     step on W ranks is the single-device step on the whole batch (see the
     module docstring); the logged metrics and the eval pass are the global
     batch's. Rank 0 alone calls `log_fn` and `metrics_logger`; every rank
-    returns the same history. Returns (state, history)."""
+    returns the same history. `steps` is the pair `fit` runs, from
+    `compiled_steps` of the data-parallel state (default: the fused
+    CLAS-FV recipe's; a caller that runs `fit_on_mesh` once an epoch makes
+    them once a run). Returns (state, history)."""
     import torch.distributed as dist
 
     state = data_parallel(state, group)
@@ -479,4 +479,4 @@ def fit_on_mesh(state: TrainState, train_batches, eval_batches=None, group=None,
                log_every=log_every, log_fn=log_fn if lead else (lambda line: None),
                metrics_logger=metrics_logger if lead else None,
                prefetch_depth=prefetch_depth,
-               steps=compiled_steps(state, step_factory, eval_step_factory))
+               steps=steps or compiled_steps(state))

@@ -89,8 +89,8 @@ def _huber_flow_smoothness(flow_pairs, group=None):
     under a process `group` (equal shards on every rank) the per-pair sums
     are all-reduced with autograd before the square root, N is the global
     batch, and every rank computes the global value. The reduction's
-    backward sums the ranks' gradients, which DDP's average of the ranks'
-    gradients divides back out."""
+    backward sums the ranks' gradients, which the average of the ranks'
+    gradients (`parallel.average_gradients`) divides back out."""
     n, _, _, h, w = flow_pairs.shape
     dx = flow_pairs[..., :, 1:] - flow_pairs[..., :, :-1]
     dy = flow_pairs[..., 1:, :] - flow_pairs[..., :-1, :]

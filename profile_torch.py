@@ -220,8 +220,9 @@ def profile_clips(chunk, out_path=None):
     """`chip_smoke.py` phase 7's workload under the profiler: one
     `ClipForward` call (fp32, motion head) on the 16 clips around one ED
     frame, in chunks of `chunk`, split by layer; then each rollout of
-    `infer/propagate.py` on their motion, with its K2 launches' device times
-    (the largest apart: `deform_images_forback`'s single launch over every
+    `infer/propagate.py` on their motion, a replay of its CUDA graph (after
+    the warm-up and the capture), with its K2 launches' device times (the
+    largest apart: `deform_images_forback`'s single launch over every
     frame)."""
     from chip_smoke import clip_workload, rollout_inputs
     from echoflow_torch.infer.clips import ClipForward
@@ -244,7 +245,8 @@ def profile_clips(chunk, out_path=None):
     for name, fn in (("deform_forback_bilinear",
                       lambda: deform_forback(label_ed, label_es, mot, mode="bilinear")),
                      ("deform_images_forback", lambda: deform_images_forback(images, mot))):
-        fn()
+        fn()   # the warm-up
+        fn()   # the capture and its replay
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

@@ -509,11 +509,16 @@ def test_clip_forward_on_the_card_matches_its_plain_path(cuda):
 def test_bilinear_rollout_on_the_card_is_bitwise_plain(cuda, monkeypatch):
     """A bilinear `deform_forback` (2 x 31 launches of K2) and
     `deform_images_forback` (1 + 31) at 4 clips x 32 frames x 112 x 112,
-    each bitwise the same call with the warp's plain forward."""
+    eager (`__wrapped__`: the graphed rollouts are
+    `test_graphed_rollouts_are_bitwise_the_eager_ones`), each bitwise the
+    same call with the warp's plain forward."""
     import torch.nn.functional as F
 
-    from echoflow_torch.infer.propagate import deform_forback, deform_images_forback
+    from echoflow_torch.infer import propagate
     from echoflow_torch.ops import warp_kernel as wk
+
+    deform_forback = propagate.deform_forback.__wrapped__
+    deform_images_forback = propagate.deform_images_forback.__wrapped__
 
     n, t, h, w = 4, 32, 112, 112
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -567,11 +572,10 @@ def test_sharded_engine_dispatch_makes_no_host_sync(cuda):
 
 @pytest.mark.cuda
 def test_one_rank_dp_step_makes_no_host_sync(cuda, tmp_path):
-    """A data-parallel fused step (DDP, global BatchNorm, the coupled
-    smoothness, the metrics' all-reduce) in a one-rank NCCL group: its loss
-    equals the plain step's, and after the second step, where DDP rebuilds
-    its gradient buckets once (a synchronizing call of DDP's own), no call
-    in a step waits for the device."""
+    """A data-parallel fused step (the gradient all-reduce, global
+    BatchNorm, the coupled smoothness, the metrics' all-reduce) in a
+    one-rank NCCL group: its loss equals the plain step's, and no call in
+    its third step waits for the device."""
     import torch.distributed as dist
 
     from echoflow_torch.train.loop import (TrainConfig, create_train_state, data_parallel,
@@ -839,3 +843,126 @@ def test_graphed_refuses_a_float_lr(cuda):
     state.optimizer.param_groups[0]["lr"] = 1e-4
     with pytest.raises(ValueError, match="LR"):
         graphed(make_train_step(), state)
+
+
+# ------------------------------------------------------------------ graphed DP steps, rollouts, CAMUS
+
+@pytest.mark.cuda
+def test_graphed_data_parallel_steps_follow_the_eager_ones(cuda, tmp_path):
+    """A data-parallel state in a one-rank NCCL group: `compiled_steps`
+    graphs both steps; four train calls (the warm-up, the capture and its
+    replay, two replays) launch K2/K3/K4 7/6/14 each and apply the
+    schedule's LR; a replay is within phase 6's bars of the eager
+    data-parallel step on a twin from the same state and batch and waits
+    for nothing; the graphed eval step is within 1e-5 of the eager one."""
+    import torch.distributed as dist
+
+    from chip_smoke import _compare_steps, _host_grads, dp_eager_twin
+    from echoflow_torch.parallel.mesh import init_distributed
+    from echoflow_torch.train.graph import GraphedStep
+    from echoflow_torch.train.loop import (compiled_steps, create_train_state, data_parallel,
+                                           make_eval_step)
+
+    cfg, batches, factory = _graph_setup(5)
+    init_distributed(f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        state = data_parallel(create_train_state(0, cfg, device="cuda"))
+        step, eval_step = compiled_steps(state)
+        assert isinstance(step, GraphedStep) and isinstance(eval_step, GraphedStep)
+        schedule = [float(torch.tensor(x, dtype=torch.float32)) for x in (1e-4, 1e-4, 1e-5, 1e-5)]
+        for batch, lr in zip(batches[:4], schedule):
+            before = _launches()
+            state, m = step(state, batch)
+            assert tuple(_launches() - before) == (7, 6, 14) and np.isfinite(float(m["loss"]))
+            assert float(state.optimizer.param_groups[0]["lr"]) == lr
+        twin, m_twin = factory()(dp_eager_twin(state, cfg), batches[4])
+        want = (float(m_twin["loss"]), _host_grads(twin.model))
+        del twin
+        state, m = _no_sync(lambda: step(state, batches[4]))
+        assert _phase6_bars(_compare_steps(float(m["loss"]), _host_grads(state.model), *want))
+        assert state.step == 5 and len(step.graphs) == 1
+        ref = {k: float(v) for k, v in make_eval_step()(state, batches[0]).items()}
+        for _ in range(3):
+            got = {k: float(v) for k, v in eval_step(state, batches[0]).items()}
+            assert all(abs(got[k] - ref[k]) <= 1e-5 * max(abs(ref[k]), 1e-30) for k in ref)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_graphed_rollouts_are_bitwise_the_eager_ones(cuda):
+    """Each rollout of `infer/propagate.py` on the card, 4 clips x 32 frames
+    x 112 x 112, three calls (the warm-up, the capture and its replay, a
+    replay): every result bitwise the eager rollout's, K2 advanced by the
+    rollout's launches at every call, one graph a signature (each wrapper
+    cleared first, so the graphs counted are those of these calls), and a
+    result that a later replay leaves alone."""
+    import torch.nn.functional as F
+
+    from echoflow_torch.infer import propagate
+    from echoflow_torch.ops import warp_kernel as wk
+
+    n, t, h, w = 4, 32, 112, 112
+    g = torch.Generator(device="cuda").manual_seed(7)
+    motion = F.interpolate(0.05 * torch.randn((n * t, 4, 7, 7), device="cuda", generator=g),
+                           size=(h, w), mode="bilinear", align_corners=False)
+    motion = motion.reshape(n, t, 4, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    labels = (torch.rand((2, n, h, w), device="cuda", generator=g) > 0.5).float()
+    ed, es = (torch.stack([1 - m, m], dim=1) for m in labels)
+    images = torch.rand((n, 3, t, h, w), device="cuda", generator=g)
+
+    def call(i, scale):
+        m = motion * scale
+        return ((propagate.deform_forback, (ed, es, m), {"mode": "bilinear"}, 2 * (t - 1)),
+                (propagate.deform_forback, (ed, es, m), {}, 0),
+                (propagate.deform_images_forback, (images, m), {}, 1 + (t - 1)),
+                (propagate.apply_sequence_deformation, (ed, m, 3, 20), {}, 17))[i]
+
+    def tensors(out):
+        return [out] if torch.is_tensor(out) else list(out)
+
+    wrappers = (propagate.deform_forback, propagate.deform_images_forback,
+                propagate.apply_sequence_deformation)
+    for fn in wrappers:
+        fn.clear()
+    for i in range(4):
+        results = []
+        for scale in (1.0, 1.0, 0.5):
+            fn, args, kw, launches = call(i, scale)
+            before = wk.warp_forward.launches
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert wk.warp_forward.launches == before + launches
+            results.append((got, fn.__wrapped__(*args, **kw)))
+        for got, want in results:   # each still its own after the later replays
+            assert all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(want)))
+    assert [len(fn.graphs) for fn in wrappers] == [2, 1, 1]
+    for fn in wrappers:
+        fn.clear()
+
+
+@pytest.mark.cuda
+def test_graphed_camus_trainer_follows_the_eager_one(cuda, monkeypatch):
+    """`train_camus_torch.main --synthetic --epochs 2` on the card through
+    its graphs (the step's "fold" and "fold + update" graphs, made once a
+    run, and the validation forward's) against the same run with the
+    wrappers swapped for the functions they wrap: losses within 1e-3
+    relative (phase 10's bar)."""
+    import train_camus_torch
+    from echoflow_torch.train import generic
+
+    argv = ["--synthetic", "--epochs", "2", "--device", "cuda"]
+    real = generic.GraphedFunction
+    made = []
+
+    def recording(fn, **kw):
+        made.append(real(fn, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(generic, "GraphedFunction", recording)
+    _, _, losses = train_camus_torch.main(argv)
+    monkeypatch.setattr(generic, "GraphedFunction", lambda fn, **kw: fn)
+    _, _, eager = train_camus_torch.main(argv)
+    assert max(abs(a - b) / abs(b) for a, b in zip(losses, eager)) <= 1e-3
+    step, validation = made
+    assert len(step.graphs) == 2 and len(validation.graphs) == 1

@@ -13,6 +13,7 @@ real capture: `tests/test_torch_cuda.py` and `chip_smoke.py` phase 12.
 
 import gc
 import weakref
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from echoflow_torch.train import graph
 from echoflow_torch.train.loop import (TrainConfig, TrainState, _apply_update,
                                        compiled_steps, create_train_state, fit, lr_schedule,
                                        make_eval_step, make_train_step)
+from echoflow_torch.utils import graphs
 
 LR, DROP, LR_AFTER = 1e-3, 2, 1e-4
 
@@ -42,14 +44,14 @@ def _tiny_state(lr=None):
 
 # ------------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("case", ["cpu", "replica", "group"])
+@pytest.mark.parametrize("case", ["cpu"])
 def test_graphed_refuses_a_cpu_or_data_parallel_state(case):
-    """No graph for a state on the CPU or under data parallelism: a
-    ValueError, never the eager step in its place."""
+    """No graph for a state on the CPU: a ValueError, never the eager step
+    in its place. (A data-parallel state on the card is graphed; on gloo it
+    lies on the CPU and is refused as here,
+    `test_graphed_refuses_a_data_parallel_state_on_the_cpu`.)"""
     state = _tiny_state(lr=torch.tensor(LR))
-    if case != "cpu":
-        setattr(state, case, object())
-    with pytest.raises(ValueError, match="cpu" if case == "cpu" else "data-parallel"):
+    with pytest.raises(ValueError, match="cpu"):
         graph.graphed(make_train_step(), state)
 
 
@@ -157,7 +159,7 @@ class _CpuGraphs(graph.GraphedStep):
 
         def replay():
             metrics["loss"].copy_(inputs["x"].sum())
-        return out, replay
+        return out, SimpleNamespace(replay=replay)
 
 
 def _x(n=2, dtype=torch.float32, seed=0):
@@ -205,8 +207,8 @@ def test_one_graph_for_each_batch_signature():
         state, m = g(state, batch)
         assert float(m["loss"]) == pytest.approx(float(batch["x"].sum()))
     assert len(g.graphs) == g.captures == 3 and step.runs == 6 and state.step == len(calls)
-    assert graph._signature(_x(2)) == graph._signature(_x(2, seed=9))
-    assert graph._signature(_x(2)) != graph._signature({"y": _x(2)["x"]})
+    assert graphs._signature(_x(2)) == graphs._signature(_x(2, seed=9))
+    assert graphs._signature(_x(2)) != graphs._signature({"y": _x(2)["x"]})
 
 
 def test_returned_metrics_are_copies():
@@ -216,7 +218,7 @@ def test_returned_metrics_are_copies():
         g(state, _x(seed=seed))
     _, m3 = g(state, _x(seed=3))
     _, m4 = g(state, _x(seed=4))
-    static = next(iter(g.graphs.values())).metrics["loss"]
+    static = next(iter(g.graphs.values())).outputs["loss"]
     assert float(m3["loss"]) == pytest.approx(float(_x(seed=3)["x"].sum()))
     assert m3["loss"].data_ptr() not in (m4["loss"].data_ptr(), static.data_ptr())
 
@@ -287,11 +289,11 @@ def test_the_wrappers_of_one_model_share_one_pool():
     other = _CpuGraphs(_Step(), _tiny_state(lr=torch.tensor(LR)))
     assert train.memory is evaluate.memory and other.memory is not train.memory
     gc.collect()
-    held, model = len(graph._memories), weakref.ref(state.model)
+    held, model = len(graphs._memories), weakref.ref(state.model)
     del state, train, evaluate
     gc.collect()
-    assert model() is None and len(graph._memories) == held - 1
-    assert any(m is other.memory for m in graph._memories.values())
+    assert model() is None and len(graphs._memories) == held - 1
+    assert any(m is other.memory for m in graphs._memories.values())
 
 
 def test_a_wrapper_runs_only_its_own_state():
@@ -299,6 +301,249 @@ def test_a_wrapper_runs_only_its_own_state():
     g = _CpuGraphs(_Step(), state)
     with pytest.raises(ValueError, match="another state"):
         g(_tiny_state(lr=torch.tensor(LR)), _x())
-    state.replica = object()
-    with pytest.raises(ValueError, match="data-parallel"):
-        g(state, _x())
+
+
+# ------------------------------------------------------------------ data parallelism
+
+def test_graphed_refuses_a_data_parallel_state_on_the_cpu():
+    """A data-parallel state on gloo lies on the CPU: `compiled_steps`
+    gives it the eager steps and `graphed` refuses it."""
+    state = _tiny_state(lr=torch.tensor(LR))
+    state.group, state.grads = object(), torch.zeros(8)
+    steps = compiled_steps(state)
+    assert not any(isinstance(s, graph.GraphedStep) for s in steps)
+    with pytest.raises(ValueError, match="cpu"):
+        graph.graphed(make_train_step(), state)
+
+
+def test_data_parallel_graphs_keep_lockstep_on_two_gloo_ranks():
+    """The wrapper on a data-parallel state, 2 gloo ranks, its capture
+    stood in for (`parallel/dryrun.StandInGraphs`: a capture computes
+    nothing, a replay reruns the step with its update count and launch
+    counters taken back): both ranks warm up at call 1, capture at call 2
+    and replay from then on, the one warm-up a signature that the card
+    needs; the wrapper writes the schedule's LR before each replay (1e-4,
+    then 1e-5 from update 2) and advances the update count; the metrics of
+    every train and eval call and the final parameters are bitwise those
+    of the eager data-parallel steps on a twin state, and the ranks agree."""
+    from echoflow_torch.parallel.dryrun import _dryrun_batch, dp_graphed_calls
+    from echoflow_torch.parallel.launch import run_ranks
+
+    rng = np.random.RandomState(0)
+    batches = [_dryrun_batch(2, 8, 32, 32, rng) for _ in range(5)]
+    ranks = run_ranks(dp_graphed_calls, 2, batches, DROP, threads=2)
+    lrs = [float(torch.tensor(x)) for x in (1e-4, 1e-5, 1e-5)]
+    for r in ranks:
+        assert r["calls"] == ["warm-up", "capture", "replay", "replay", "replay"]
+        assert r["eval_calls"] == ["warm-up", "capture", "replay", "replay"]
+        assert r["lrs"] == lrs and r["steps"] == [1, 2, 3, 4]
+        assert r["same_metrics"] and r["same_eval"] and r["same_params"]
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+
+
+# ------------------------------------------------------------------ function graphs
+
+class _CpuFunctionGraphs(graphs.GraphedFunction):
+    """`GraphedFunction` taking CPU tensors for CUDA ones, its capture stood
+    in for: the capture runs the function's Python once and puts the
+    `held()` tensors back (a capture computes nothing); a replay runs it
+    again with the launch counters taken back, so the wrapper must advance
+    them."""
+
+    def __init__(self, fn, memory=None, bindings=lambda **others: (), held=list):
+        super().__init__(fn, memory=graphs._Memory(torch.device("cpu")), bindings=bindings)
+        self.held, self.captures, self.warm_ups = held, 0, 0
+
+    def _on_card(self, tensors):
+        return True
+
+    def _run_on_side_stream(self, fn):
+        self.warm_ups += 1
+        return fn()
+
+    def _capture(self, fn):
+        from echoflow_torch.parallel.dryrun import _fill
+
+        self.captures += 1
+        saved = [(t, t.clone()) for t in self.held()]
+        out = fn()
+        with torch.no_grad():
+            for t, v in saved:
+                t.copy_(v)
+
+        def replay():
+            counts = graphs._launches()
+            _fill(out, fn())
+            for (mod, name), count in zip(graphs._COUNTERS, counts):
+                getattr(mod, name).launches = count
+        return out, SimpleNamespace(replay=replay)
+
+
+def _rollout_inputs(seed, n=2, t=6, h=12, w=10):
+    rng = np.random.RandomState(seed)
+    labels = (rng.rand(2, n, 1, h, w) > 0.5).astype(np.float32)
+    one_hot = [torch.from_numpy(np.concatenate([1 - m, m], axis=1)) for m in labels]
+    motion = torch.from_numpy((0.1 * rng.randn(n, 4, t, h, w)).astype(np.float32))
+    return one_hot[0], one_hot[1], motion
+
+
+@pytest.mark.parametrize("name", ["deform_forback", "deform_images_forback",
+                                  "apply_sequence_deformation"])
+def test_graphed_rollouts_equal_the_eager_rollouts(name):
+    """Each rollout of `infer/propagate.py` through the function wrapper,
+    its capture stood in for: one graph for each shapes, `mode` and
+    indices (a warm-up, then a capture), every call's result bitwise the
+    eager rollout's (`fn.__wrapped__`) on its own inputs, and the returned
+    tensors copies that a later replay leaves alone. On CPU tensors the
+    public rollout is the eager one and makes no graph."""
+    from echoflow_torch.infer import propagate
+
+    fn = getattr(propagate, name)
+    eager = fn.__wrapped__
+
+    def args(seed, n=2):
+        ed, es, motion = _rollout_inputs(seed, n=n)
+        if name == "deform_forback":
+            return (ed, es, motion), {"mode": "bilinear"}
+        if name == "deform_images_forback":
+            return (torch.rand(n, 3, 6, 12, 10, generator=torch.Generator().manual_seed(seed)),
+                    motion), {}
+        return (ed, motion, 4, 0), {"mode": "bilinear", "forward": False}
+
+    g = _CpuFunctionGraphs(eager)
+    calls = [args(0), args(1), args(2), args(3, n=3), args(4, n=3), args(5)]
+    results = []
+    for a, kw in calls:
+        got = g(*a, **kw)
+        want = eager(*a, **kw)
+        for x, y in zip(*(([o] if torch.is_tensor(o) else o) for o in (got, want))):
+            assert torch.equal(x, y)
+        results.append((got, want))
+    a, kw = args(6)
+    g(*a, **{**kw, "mode": "nearest"})
+    g(*a, **{**kw, "mode": "nearest"})
+    assert (len(g.graphs), g.captures, g.warm_ups) == (3, 3, 3)
+    for got, want in results:   # replays after them overwrote nothing returned
+        for x, y in zip(*(([o] if torch.is_tensor(o) else o) for o in (got, want))):
+            assert torch.equal(x, y)
+    a, kw = args(0)
+    before = len(fn.graphs)
+    fn(*a, **kw)
+    assert len(fn.graphs) == before == 0 and fn.signature == g.signature
+
+
+def test_a_function_graph_advances_the_launch_counters():
+    """A replay adds the launches its capture made (here 3 of K2 a call),
+    and the result is a copy of the graph's output, not the output."""
+    def fn(x, scale):
+        wk.warp_forward.launches += 3
+        return x * scale
+
+    g = _CpuFunctionGraphs(fn)
+    wk.warp_forward.launches = 0
+    outs = []
+    for k in range(4):
+        outs.append(g(torch.full((2,), float(k)), scale=2.0))
+        assert wk.warp_forward.launches == 3 * (k + 1)
+    static = next(iter(g.graphs.values())).outputs
+    assert [float(o[0]) for o in outs] == [0.0, 2.0, 4.0, 6.0]
+    assert all(o.data_ptr() != static.data_ptr() for o in outs)
+
+
+def _scaled(x, scale):
+    return x * scale
+
+
+def test_a_function_wrapper_keeps_its_most_recently_used_graphs():
+    """With room for 2 graphs: a third key's capture drops the graph used
+    longest ago, with its static tensors; a replay counts as a use; a
+    dropped key warms up and captures again; every result is the
+    function's."""
+    g = _CpuFunctionGraphs(_scaled)
+    g.max_graphs = 2
+    a, b, c = (torch.full((n,), 1.0) for n in (1, 2, 3))
+    for x in (a, a, b, b, a):
+        assert torch.equal(g(x, 2.0), x * 2.0)
+    static_b = weakref.ref(g.graphs[g.key(b, 2.0)].inputs["x"])
+    for x in (c, c):
+        assert torch.equal(g(x, 2.0), x * 2.0)
+    assert list(g.graphs) == [g.key(a, 2.0), g.key(c, 2.0)] and (g.warm_ups, g.captures) == (3, 3)
+    gc.collect()
+    assert static_b() is None
+    for x in (b, b):
+        assert torch.equal(g(x, 2.0), x * 2.0)
+    assert list(g.graphs) == [g.key(c, 2.0), g.key(b, 2.0)] and (g.warm_ups, g.captures) == (4, 4)
+
+
+@pytest.mark.parametrize("wrapper", ["function", "step"])
+def test_clear_and_the_warm_up_bound_drop_what_a_wrapper_holds(wrapper):
+    """Keys called once are held for their capture up to `max_graphs` (the
+    oldest forgotten first: it warms up again); `clear()` drops every graph
+    and warm-up, so the next call of a captured key warms up again. For a
+    function wrapper and a step wrapper alike."""
+    if wrapper == "function":
+        g = _CpuFunctionGraphs(_scaled)
+        call = lambda n: float(g(torch.full((n,), 1.0), 3.0).sum())    # noqa: E731
+    else:
+        state = _tiny_state(lr=torch.tensor(LR))
+        g = _CpuGraphs(_Step(), state)
+        call = lambda n: float(g(state, _x(n))[1]["loss"])              # noqa: E731
+    g.max_graphs = 2
+    for n in (1, 2, 3, 1):
+        call(n)
+    assert not g.graphs and len(g.warmed) == 2            # 1 was forgotten before its second call
+    call(1)
+    assert len(g.graphs) == 1
+    g.clear()
+    assert not g.graphs and not g.warmed
+    call(1)
+    assert not g.graphs and len(g.warmed) == 1
+
+
+def test_camus_multisteps_on_its_fold_and_update_graphs_equals_the_eager_one(monkeypatch):
+    """`generic.run_training` at k = 3 over 7 mini-steps, then 4 more with
+    the returned optimizer, through the function wrapper with its capture
+    stood in for, against the eager run from the same init: the "fold"
+    graph (warm-up, capture at mini-step 2) and the "fold + update" graph
+    (warm-up at 3, capture at 6) of one wrapper made once for both calls;
+    the losses, the outputs, the parameters, the accumulated mean and the
+    mini-step count bitwise the eager run's (which
+    `tests/test_torch_camus.py` holds against optax's MultiSteps(adamw))."""
+    import train_camus_torch
+    from echoflow_torch.train import generic
+
+    rng = np.random.RandomState(0)
+    batches = [{"images": rng.rand(2, 1, 16, 16).astype(np.float32),
+                "labels": rng.randint(0, 4, (2, 16, 16)).astype(np.int32)} for _ in range(7)]
+
+    def run(stand_in):
+        model = train_camus_torch.build_model(seed=0)
+        opt = generic.MultiSteps(model.parameters(), 3, 2e-3, 1e-5)
+        if stand_in:
+            # As on the card: the gradients exist from the start and stay put.
+            opt.on_card = True
+            for p in opt.params:
+                p.grad = torch.zeros_like(p)
+            held = lambda: [*model.parameters(), *opt.acc, opt.count,   # noqa: E731
+                            *[v for s in opt.inner.state.values() for v in s.values()]]
+            monkeypatch.setattr(generic, "GraphedFunction",
+                                lambda fn, memory, bindings: _CpuFunctionGraphs(
+                                    fn, bindings=bindings, held=held))
+        losses, examples = [], []
+        for part in (batches, batches[:4]):
+            model, opt, avg, example = generic.run_training(
+                model, iter(part), optimizer=opt, keys=("images", "labels"))
+            losses.append(avg)
+            examples.append(example[0])
+        monkeypatch.undo()
+        return model, opt, losses, examples
+
+    model, opt, losses, examples = run(False)
+    g_model, g_opt, g_losses, g_examples = run(True)
+    (wrapper,) = g_opt.steps.values()
+    assert len(wrapper.graphs) == 2 and (wrapper.warm_ups, wrapper.captures) == (2, 2)
+    assert g_losses == losses and g_opt.mini_step == opt.mini_step == 2
+    assert all(np.array_equal(a, b) for a, b in zip(g_examples, examples))
+    for a, b in zip((*g_model.parameters(), *g_opt.acc, g_opt.count),
+                    (*model.parameters(), *opt.acc, opt.count)):
+        assert torch.equal(a, b)

@@ -290,9 +290,9 @@ def main(argv=None):
                                   if ed_es_only else (make_train_step, make_eval_step))
     if distributed:
         state = data_parallel(state)
-    # Once a run, so that an epoch does not capture them again: on one card
-    # CUDA graphs of the steps (echoflow's jit), under DDP and on the CPU the
-    # eager steps.
+    # Once a run, so that an epoch does not capture them again: on the card
+    # CUDA graphs of the steps (echoflow's jit), in one process or under
+    # data parallelism; on the CPU the eager steps.
     train_step, eval_step = compiled_steps(state, step_factory, eval_factory)
 
     def epoch_batches(epoch, split):
@@ -316,7 +316,7 @@ def main(argv=None):
         tic = time.time()
         if distributed:
             state, _ = fit_on_mesh(state, epoch_batches(epoch, "train"),
-                                   log_every=args.log_every, step_factory=step_factory)
+                                   log_every=args.log_every, steps=(train_step, eval_step))
             val_batches = _sharded(epoch_batches(epoch, "val"), rank, world)
         else:
             state, _ = fit(state, epoch_batches(epoch, "train"), log_every=args.log_every,
@@ -333,7 +333,7 @@ def main(argv=None):
             f"ES dice {np.mean(es_d or [0]):.3f} ({time.time() - tic:.0f}s)")
         extra = {"epoch": epoch, "val_loss": val, "seed": args.seed}
         # The validation metrics are the global batch's, so every rank takes
-        # the same branch; rank 0 writes (the model, without DDP's prefix).
+        # the same branch; rank 0 writes.
         # A NaN validation is a diverged run, never a better one.
         if should_save_best(val, best_val):
             best_val = val
