@@ -30,8 +30,9 @@ Phases (any failure raises and the script exits nonzero):
      field; then K2's pair launch of the chain step (label and video at
      the same coordinates, cases "chain" and "chain_smooth") beside the
      two single launches on the same inputs; device time of kernel, plain
-     version and `F.grid_sample` (a yardstick the port never calls), and
-     K3's run-to-run difference;
+     version and `F.grid_sample` (a yardstick the port never calls); K3
+     held to the same bits over 10 launches, and whether it is bitwise the
+     plain version under torch's deterministic algorithms;
   6. training at full width: `create_train_state(device="cuda")`, fp32,
      TF32 off, 3 steps of `make_train_step(fused_ota=True)` at batch
      4 x 3 x 32 x 112 x 112 on synthetic samples, then one eval step, with
@@ -129,6 +130,23 @@ Phases (any failure raises and the script exits nonzero):
      through its graphs against the same run eager, with and without
      `--acnn`: losses within 1e-3, graphs and replays, no warp launch.
      Phase 7 runs the eager rollouts (`fn.__wrapped__`).
+ 14. repeatable training and the last paths echoflow compiles: (a) two
+     eager fp32 runs of phase 12's recipe as the trainer runs them, under
+     the plain warp with torch's deterministic algorithms, under those
+     with the port's K3, and with only cuDNN's deterministic algorithms:
+     bitwise or their distance, the last two held bitwise; the ops torch
+     names nondeterministic in a step; two eager bf16 runs; phase 12's
+     graphed fp32 step with cuDNN's deterministic algorithms on and off;
+     K3's us a launch in an eager step; (b) the engine through its graphs (the default on one
+     card) against its eager body (`_run.__wrapped__`) on phase 4's three
+     videos, fp32 and bf16: masks bitwise, K1's launches by counter (3)
+     and by name, no wait in a replayed dispatch, frames/s of each, a
+     profiled pass's busy time and idle share, captures, memory reserved;
+     then a seeded stream of 12 videos of 100-300 frames: keys, warm-ups,
+     captures, replays, wall time against eager; (c) `ClipForward`'s
+     graphs on phase 7's 16 clips against its eager forward: bitwise, K1
+     at 2, ms of each. Phases 4, 7 and 8 run the graphed engine and
+     `ClipForward` (their defaults; the CLI's one video is a warm-up).
 
 Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
 the last line {"ok": true, "device": {...}}.
@@ -182,12 +200,16 @@ MASK_TOL = 1e-4        # argmax near-ties between two fp32 decoders
 # K2 and K4 do the plain versions' elementwise arithmetic in the same order
 # with no contracted multiply-adds. K2 is held bitwise; K4's bound allows a
 # last-bit difference (it is bitwise too). K3's bound is per element
-# (`image_grad_tolerance`): fp32 atomics add in a run-dependent order.
+# (`image_grad_tolerance`): it sums in the plain version's order of corners
+# and sources, with each corner's sources summed apart; K3 is held bitwise
+# to itself.
 K4_TOL = 1e-6          # relative to 1 + |plain|
+K3_REPEATS = 10        # K3 launches on the same inputs held bitwise equal (phase 5)
 # Card vs CPU, one fused train step at (2, 3, 8, 32, 32): fp32 rounding on
-# both sides, cuDNN's and the CPU's conv algorithms, K3's atomics. Measured
-# on an H100: loss 6.7e-7, all gradients 1.6e-3, worst leaf 2.3e-3. A
-# planted fault in the CPU port, the label warps' image gradient (K3)
+# both sides, cuDNN's and the CPU's conv algorithms, K3's order of sums.
+# Measured on an H100 (with the float4-atomic K3): loss 6.7e-7, all
+# gradients 1.6e-3, worst leaf 2.3e-3. A planted fault in the CPU port,
+# the label warps' image gradient (K3)
 # dropped, moves all gradients by 1.0e-2 and the worst leaf by 0.61; K4
 # without its border zeroing moves them by 0.14 and 8.9.
 LOSS_TOL = 1e-5        # relative loss difference
@@ -366,17 +388,22 @@ def phase_warp():
             call_ms=call, plain_ms=plain, library_ms=lib, library_abs_diff=lib_err,
             bound_ms=(2 * img_b + 2 * pix_b) / PEAK_HBM_BYTES * 1e3, bound_by="bytes")
 
-        # K3: two launches on the same inputs, against the plain version
-        # and against each other.
+        # K3: K3_REPEATS launches on the same inputs, bitwise equal, within
+        # the per-element bound of the plain version; and whether it is
+        # bitwise the plain version under torch's deterministic algorithms
+        # (its `index_add_`s through a sort).
         tol = wk.image_grad_tolerance(grad, px, py)
-        got1, got2 = wk.warp_image_grad(grad, px, py), wk.warp_image_grad(grad, px, py)
+        runs = [wk.warp_image_grad(grad, px, py) for _ in range(K3_REPEATS)]
+        got1 = runs[0]
         want = wk.reference_warp_image_grad(grad, px, py)
+        with torch_deterministic():
+            want_det = wk.reference_warp_image_grad(grad, px, py)
         err = float((got1 - want).abs().max())
-        run_diff = float((got1 - got2).abs().max())
-        if not (bool(((got1 - want).abs() <= tol).all())
-                and bool(((got1 - got2).abs() <= tol).all())):
-            raise AssertionError(f"K3 {shape}: max abs err {err}, run-to-run {run_diff}, "
-                                 f"beyond the per-element bound")
+        run_diff = max(float((r - got1).abs().max()) for r in runs[1:])
+        same_bits = all(torch.equal(r.view(torch.int32), got1.view(torch.int32)) for r in runs)
+        if not (bool(((got1 - want).abs() <= tol).all()) and same_bits):
+            raise AssertionError(f"K3 {shape}: max abs err {err} (the per-element bound), "
+                                 f"the same bits in {K3_REPEATS} launches {same_bits}")
         call, ms = device_ms(lambda: wk.warp_image_grad(grad, px, py),
                              match="warp_image_grad_kernel")
         plain, _ = device_ms(lambda: wk.reference_warp_image_grad(grad, px, py), reps=5)
@@ -384,6 +411,8 @@ def phase_warp():
             grad, image, grid, 0, 1, False, [True, False]))
         out["warp_image_grad"][label] = dict(
             shape=list(shape), max_abs_err=err, run_to_run_abs_diff=run_diff,
+            bitwise_deterministic_plain=bool(torch.equal(got1, want_det)),
+            deterministic_plain_abs_diff=float((got1 - want_det).abs().max()),
             max_tolerance=float(tol.max()), ms=ms, call_ms=call, plain_ms=plain,
             library_ms=lib, bound_ms=(2 * img_b + 2 * pix_b) / PEAK_HBM_BYTES * 1e3,
             bound_by="bytes")
@@ -414,9 +443,12 @@ def phase_warp():
                 f"{r['call_ms'] * 1e3:.2f} us), plain {r['plain_ms'] * 1e3:.1f} us, "
                 f"grid_sample {r['library_ms'] * 1e3:.1f} us, "
                 f"bound {r['bound_ms'] * 1e3:.2f} us"
-                + (f", run-to-run {r['run_to_run_abs_diff']:.3e}"
+                + (f", run-to-run {r['run_to_run_abs_diff']:.3e} over {K3_REPEATS} launches, "
+                   f"bitwise the plain version under deterministic algorithms "
+                   f"{r['bitwise_deterministic_plain']} (max abs diff "
+                   f"{r['deterministic_plain_abs_diff']:.3e})"
                    if "run_to_run_abs_diff" in r else ""))
-        del image, grad, px, py, grid, got, want, got1, got2, tol
+        del image, grad, px, py, grid, got, want, got1, runs, want_det, tol
     for motion in ("rough", "smooth"):
         label = "chain" if motion == "rough" else "chain_smooth"
         r = out["warp_forward"][label] = phase_warp_chain(g, motion)
@@ -479,8 +511,9 @@ def count_syncs(fn):
 
 
 def _launch_counts():
-    return (wk.warp_forward.launches, wk.warp_image_grad.launches,
-            wk.warp_coord_grad.launches)
+    """(K2, K3, K4) launches; 0 for a plain version swapped in (`plain_warp`)."""
+    return tuple(getattr(fn, "launches", 0)
+                 for fn in (wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad))
 
 
 def _zero_launch_counts():
@@ -707,13 +740,15 @@ def plain_warp():
     """Inside the block the warp (forward, image and coordinate gradients)
     runs its plain PyTorch versions on CUDA tensors too (the reference of
     the propagation and of the CAMUS losses on the card)."""
-    kernels = wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad
+    kernels = wk.warp_forward, wk.warp_forward_pair, wk.warp_image_grad, wk.warp_coord_grad
     wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad = (
         wk.reference_warp_forward, wk.reference_warp_image_grad, wk.reference_warp_coord_grad)
+    wk.warp_forward_pair = lambda a, b, px, py: (wk.reference_warp_forward(a, px, py),   # noqa: E731
+                                                 wk.reference_warp_forward(b, px, py))
     try:
         yield
     finally:
-        wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad = kernels
+        wk.warp_forward, wk.warp_forward_pair, wk.warp_image_grad, wk.warp_coord_grad = kernels
 
 
 def with_plain_warp(fn):
@@ -998,7 +1033,7 @@ def phase_dp_train():
     full-width gradients are held at bars set from readings
     (`DP_FULL_GRAD_TOL`); phase 6's (2, 3, 8, 32, 32) step on the card,
     without and with data parallelism, at phase 6's bars. Each step is also run twice to
-    read the run-to-run spread (K3's atomics add in a run-dependent order)
+    read the run-to-run spread (cuDNN's fp32 algorithms add in a run-dependent order)
     that the bars must leave room for."""
     import torch.distributed as dist
 
@@ -1546,10 +1581,11 @@ TIMED_REPLAYS = 5
 # gradient zeroed moves that leaf by 1.0.
 BF16_GRAD_TOL = 1e-2
 BF16_LEAF_TOL = 3e-2
-# The kernels a profiled replay counts by name: K1, K2, K3 (its scatter and
-# transpose, two a launch) and K4.
+# The kernels a profiled replay counts by name: K1, K2, K3 (count, place,
+# fill and reduce: K3_KERNELS a launch) and K4.
 KERNEL_NAMES = ("decoder_heads_kernel", "warp_forward_kernel", "warp_image_grad_kernel",
                 "warp_coord_grad_kernel")
+K3_KERNELS = 4
 
 
 def recipe_steps(recipe, t):
@@ -1720,7 +1756,7 @@ def _graph_checks(name, res, want, want_eval):
             bad.append("launches a step")
         if not all(np.isfinite(rec["loss"]) for rec in r["steps"]):
             bad.append("loss not finite")
-    if res["profiled_launches"] != (0, want[0], 2 * want[1], want[2]):
+    if res["profiled_launches"] != (0, want[0], K3_KERNELS * want[1], want[2]):
         bad.append(f"kernels by name in a replay {res['profiled_launches']}")
     if res["k1_launches"] != 0:
         bad.append(f"K1 launched {res['k1_launches']} times (the train steps run the plain "
@@ -1743,8 +1779,8 @@ def phase_graphs():
     dropping at update GRAPH_LR_DROP. Held against the eager step from
     the same state and batch: the graphed step 1 (the warm-up) against the
     first eager run's, and step 3 (a replay) against an eager twin of the
-    graphed state (two eager runs are far apart by step 3: K3's atomics,
-    amplified by Adam), at phase 6's bars in fp32 and BF16_GRAD_TOL and
+    graphed state (two eager fp32 runs are far apart by step 3: cuDNN's
+    weight gradients, amplified by Adam), at phase 6's bars in fp32 and BF16_GRAD_TOL and
     BF16_LEAF_TOL in bf16 (`step_tolerances`; how far two eager steps
     from one state are apart is printed beside them: the first two eager
     runs at step 1, a second twin at step 3). After the run the median
@@ -1867,7 +1903,7 @@ def phase_graphs():
         log(f"  launches (K2, K3, K4) a step: graphed "
             f"{[r['launches'] for r in graphed_run['steps']]}, eager "
             f"{[r['launches'] for r in eager['steps']]}, implied {want}; in a profiled replay "
-            f"by name (K1, K2, K3 x2, K4) {named}; K1 in the variant {k1_launches}; waits in a "
+            f"by name (K1, K2, K3 x{K3_KERNELS}, K4) {named}; K1 in the variant {k1_launches}; waits in a "
             f"replay under sync mode 'error': {0 if error is None else error}")
         log(f"  step ms (host clock, unprofiled): eager median {res['eager_median_ms']:.1f} "
             f"{[round(x, 1) for x in eager_ms]}, graphed median {res['graphed_median_ms']:.1f} "
@@ -2071,7 +2107,7 @@ def _dp_graph_variant(name, fn, state, batches, compare, profile_eager=True):
     eager_profile = (f"; the eager call's {e_wall:.1f} / {e_busy:.1f}" if profile_eager else "")
     log(f"  profiled replay wall {wall:.1f} ms, device busy {busy:.1f} (idle "
         f"{res['replay_idle_share']:.1%}{eager_profile}); "
-        f"K1-K4 by name (K1, K2, K3 x2, K4) replay {named}, eager {e_named}; launches "
+        f"K1-K4 by name (K1, K2, K3 x{K3_KERNELS}, K4) replay {named}, eager {e_named}; launches "
         f"(K2, K3, K4) eager {eager_launches[-1]}, graphed {graph_launches}; K1 "
         f"{decoder_heads.launches}; waits in a replay: {0 if error is None else error}; "
         f"reserved {res['reserved_bytes'] / 2**30:.3f} GiB; values {values}; "
@@ -2152,7 +2188,7 @@ def phase_dp_graphs():
                        f"eager {res['eager_collectives']}")
         if any(c != launches for c in res["graph_launches"] + res["eager_launches"]):
             bad.append(f"{name}: launches a call")
-        if res["profiled_launches"] != (0, launches[0], 2 * launches[1], launches[2]) \
+        if res["profiled_launches"] != (0, launches[0], K3_KERNELS * launches[1], launches[2]) \
                 or res["k1_launches"] != 0:
             bad.append(f"{name}: kernels by name {res['profiled_launches']}, K1 "
                        f"{res['k1_launches']}")
@@ -2304,7 +2340,7 @@ def phase_graphed_rollouts(inputs):
             torch.cuda.synchronize()
             counts = (decoder_heads.launches, *_launch_counts())     # K1, K2, K3, K4
             bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
-            nodes = graph_kernel_nodes(fn.graphs[key].graph)       # K1, K2, K3 x2, K4
+            nodes = graph_kernel_nodes(fn.graphs[key].graph)       # K1, K2, K3 x4, K4
             eager_ms = cuda_ms(eager_call, reps=5, warmup=1)
             graphed_ms = cuda_ms(graphed_call, reps=5, warmup=1)
             wall, busy, named, _ = profile_replay(graphed_call)
@@ -2314,7 +2350,7 @@ def phase_graphed_rollouts(inputs):
                              replay_busy_ms=busy, replay_idle_share=1.0 - busy / wall)
             log(f"rollout graphs ({name}): bitwise the eager rollout {bitwise}; a replay's "
                 f"launches (K1, K2, K3, K4) {counts} (counters), {nodes} (by name among the "
-                f"nodes of the graph it ran; K3 two names a launch), implied (0, {want}, 0, 0); "
+                f"nodes of the graph it ran; K3 four names a launch), implied (0, {want}, 0, 0); "
                 f"graphs its calls made {len(made)}; the profiler's K2 records {named[1]}; "
                 f"eager {eager_ms:.3f} ms, graphed {graphed_ms:.3f} ms (CUDA events, median "
                 f"of 5); profiled replay wall {wall:.3f} ms, device busy {busy:.3f} (idle "
@@ -2390,6 +2426,342 @@ def phase_graphed_camus():
     return out
 
 
+# Phase 14: repeatable training (the deterministic K3), and the last two
+# paths echoflow compiles, the inference engine and `ClipForward`, as CUDA
+# graphs.
+REPEAT_RUNS = 2        # eager runs of phase 12's recipe compared in each setting
+STREAM_VIDEOS = 12     # 14b's stream of mixed lengths
+STREAM_LENGTHS = (100, 300)
+
+
+@contextlib.contextmanager
+def torch_deterministic():
+    """torch's deterministic algorithms inside the block, warning (not
+    raising) for an op that has none: `index_add_` adds through a sort,
+    cuDNN takes deterministic algorithms. The ctypes-launched kernels are
+    invisible to it."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on):
+    """torch.backends.cudnn.deterministic set to `on` inside the block."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def repeat_settings():
+    """The settings of phase 14a's probe: (a) as the trainer runs, (b) the
+    plain warp (K3 an `index_add_`) under torch's deterministic algorithms,
+    (c) the port's K3 under them, (d) the port's K3 with only cuDNN's
+    deterministic algorithms."""
+    def plain_deterministic():
+        stack = contextlib.ExitStack()
+        stack.enter_context(plain_warp())
+        stack.enter_context(torch_deterministic())
+        return stack
+    return {"a": contextlib.nullcontext, "b": plain_deterministic, "c": torch_deterministic,
+            "d": lambda: cudnn_deterministic(True)}
+
+
+def repeat_pair(cfg, batches, setting=contextlib.nullcontext, runs=REPEAT_RUNS):
+    """REPEAT_RUNS eager runs of phase 12's recipe (`_trajectory`: GRAPH_STEPS
+    steps from the seed-0 state, bf16 damped) under `setting`: whether the
+    parameters and running statistics after the run are bitwise equal in
+    all of them, the largest relative L2 distance of the moves from the
+    first run's, and of the step-3 gradients."""
+    factory = lambda: make_train_step(fused_ota=True)   # noqa: E731
+    t0 = time.perf_counter()
+    out = []
+    for _ in range(runs):
+        with setting():
+            state, _, run = _trajectory(cfg, factory, batches, graph=False)
+        del state
+        out.append(run)
+    torch.cuda.empty_cache()
+    first = out[0]
+    res = dict(bitwise=all(torch.equal(r[k], first[k]) for r in out[1:]
+                           for k in ("param_move", "stats_move")),
+               param_dist=max(_move_dist(r["param_move"], first["param_move"]) for r in out[1:]),
+               stats_dist=max(_move_dist(r["stats_move"], first["stats_move"]) for r in out[1:]),
+               step3_grad_rel=max(_compare_steps(
+                   r["steps"][2]["loss"], r["steps"][2]["grads"], first["steps"][2]["loss"],
+                   first["steps"][2]["grads"])["grad_rel"] for r in out[1:]),
+               seconds=time.perf_counter() - t0)
+    return res
+
+
+def nondeterministic_ops(cfg, batches):
+    """The ops of one eager fp32 step that torch knows have no deterministic
+    implementation: the distinct messages (to their first clause) of
+    `use_deterministic_algorithms(True, warn_only=True)`, counted."""
+    state = create_train_state(0, cfg, device="cuda")
+    step = make_train_step(fused_ota=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch_deterministic():
+            step(state, batches[0])
+            torch.cuda.synchronize()
+    del state
+    return dict(collections.Counter(str(w.message).split(",")[0][:120] for w in caught
+                                    if "determinis" in str(w.message)))
+
+
+def graphed_step_ms(cfg, batches, cudnn_on):
+    """The median of TIMED_REPLAYS unprofiled replays of phase 12's graphed
+    fp32 step with cuDNN's deterministic algorithms on or off."""
+    from echoflow_torch.train.graph import graphed
+
+    with cudnn_deterministic(cudnn_on):
+        state = create_train_state(0, cfg, device="cuda")
+        step = graphed(make_train_step(fused_ota=True), state)
+        for batch in batches[:2]:
+            state, _ = step(state, batch)
+        times = []
+        for i in range(TIMED_REPLAYS):
+            t0 = time.perf_counter()
+            step(state, batches[i % GRAPH_STEPS])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    del state, step
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+# cuDNN's deterministic algorithms would make the default fp32 training
+# repeat bitwise (setting (d)), but they slow phase 12's graphed fp32 step
+# by more than this share, so the trainer leaves cuDNN's defaults.
+CUDNN_DETERMINISTIC_MAX_COST = 0.05
+
+
+def phase_repeatable_training():
+    """Phase 14a: why two training runs from one state drift apart. Two
+    eager fp32 runs of phase 12's recipe in each of the settings (a)-(d)
+    (`repeat_settings`), their distances,
+    (c) and (d) held bitwise equal (the port's K3 sums in a fixed order);
+    the ops torch names nondeterministic in one step; two eager bf16 runs
+    with the defaults; phase 12's graphed fp32 step with cuDNN's
+    deterministic algorithms off and on (off, on, on, off), which decides
+    the defaults (CUDNN_DETERMINISTIC_MAX_COST); K3's device time a launch
+    in an eager fp32 step against phase 5's bound."""
+    base = TrainConfig(lr_drop_step=GRAPH_LR_DROP)
+    t = base.clip_length
+    host = list(synthetic_batches(base.batch_size, t, base.image_size[0], GRAPH_STEPS + 1,
+                                  seed=0))
+    batches = list(prefetch_to_device(iter(host), "cuda"))
+    out = {"settings": {}}
+    for name, setting in repeat_settings().items():
+        r = out["settings"][name] = repeat_pair(base, batches, setting)
+        log(f"repeatable training ({name}): two eager fp32 runs of phase 12's recipe, bitwise "
+            f"{r['bitwise']}; parameter moves {r['param_dist']:.3e} apart, running statistics "
+            f"{r['stats_dist']:.3e}, step-3 gradients {r['step3_grad_rel']:.3e}; "
+            f"{r['seconds']:.1f} s")
+    out["nondeterministic_ops"] = nondeterministic_ops(base, batches)
+    log(f"  ops torch names nondeterministic in one fp32 step (warn_only): "
+        f"{out['nondeterministic_ops'] or 'none'}")
+    bf16 = dataclasses.replace(base, compute_dtype=torch.bfloat16)
+    r = out["bf16"] = repeat_pair(bf16, batches)
+    log(f"  defaults, bf16 (damped): bitwise {r['bitwise']}; parameter moves "
+        f"{r['param_dist']:.3e} apart, running statistics {r['stats_dist']:.3e}, step-3 "
+        f"gradients {r['step3_grad_rel']:.3e}")
+    cost = [graphed_step_ms(base, batches, on) for on in (False, True, True, False)]
+    out["graphed_ms_cudnn_deterministic"] = {"off": [cost[0], cost[3]], "on": [cost[1], cost[2]]}
+    share = out["cudnn_deterministic_cost"] = (cost[1] + cost[2]) / (cost[0] + cost[3]) - 1.0
+    log(f"  phase 12's graphed fp32 step, cuDNN deterministic off / on / on / off: "
+        f"{_sci(cost)} ms (host clock, median of {TIMED_REPLAYS} replays each): +{share:.1%}; "
+        f"the defaults {'keep' if share > CUDNN_DETERMINISTIC_MAX_COST else 'could take'} "
+        f"cuDNN's own algorithms (limit +{CUDNN_DETERMINISTIC_MAX_COST:.0%}), so two default fp32 "
+        f"runs are {out['settings']['a']['param_dist']:.3e} apart after {GRAPH_STEPS} steps")
+    state = create_train_state(0, base, device="cuda")
+    step = make_train_step(fused_ota=True)
+    state, _ = step(state, batches[0])
+    before = wk.warp_image_grad.launches
+    _, k3_ms = device_ms(lambda: step(state, batches[1]), reps=3, match="warp_image_grad_kernel")
+    launches = (wk.warp_image_grad.launches - before) // 4   # device_ms calls it 4 times
+    del state
+    torch.cuda.empty_cache()
+    out["k3_us_in_step"] = k3_ms * 1e3 / launches
+    log(f"  K3 in an eager fp32 step: {out['k3_us_in_step']:.2f} us a launch ({launches} a step, "
+        f"its four kernels by name; the float4-atomic K3 read 6.2 us, bound 1.20 us)")
+    bad = [k for k in ("c", "d") if not out["settings"][k]["bitwise"]]
+    if bad:
+        raise AssertionError(f"two eager runs with deterministic cuDNN differ: settings {bad}")
+    return out
+
+
+def _count_calls(wrapper):
+    """Counts of `wrapper`'s warm-ups and captures from now on (its methods
+    wrapped on the instance)."""
+    counts = collections.Counter()
+    for method, name in ((wrapper._warm_up, "warm_ups"), (wrapper._record, "captures")):
+        def counted(*a, _m=method, _n=name, **kw):
+            counts[_n] += 1
+            return _m(*a, **kw)
+        setattr(wrapper, method.__name__, counted)
+    return counts
+
+
+def _engine_pass(engine, videos):
+    """One `segment_videos` pass (phase 4's recipe): (masks, host seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = list(engine.segment_videos(videos, num_clips=5, step=1, fuse_method="simple"))
+    return masks, time.perf_counter() - t0
+
+
+def _eager_engine(state, **kw):
+    engine = VideoSegmenter(state, **kw)
+    engine._run = engine._run.__wrapped__
+    return engine
+
+
+def _engine_key(engine, length):
+    """(t_pad, k_num, n_fwd) of a video of `length` frames at 5 shifts,
+    step 1: what selects its graph, besides the fusion method and mono."""
+    t_pad = max(engine.bucket, -(-length // engine.bucket) * engine.bucket)
+    return (t_pad, *engine._operands(length, 5, 1, t_pad)[:2])
+
+
+def stream_videos():
+    """14b's seeded stream: STREAM_VIDEOS synthetic 112x112 uint8 videos,
+    lengths drawn from STREAM_LENGTHS."""
+    rng = np.random.RandomState(14)
+    lengths = rng.randint(STREAM_LENGTHS[0], STREAM_LENGTHS[1] + 1, STREAM_VIDEOS)
+    return [make_beating_video(num_frames=int(n), period=float(p), seed=100 + i)
+            .video.astype(np.uint8)
+            for i, (n, p) in enumerate(zip(lengths, rng.uniform(36.0, 52.0, STREAM_VIDEOS)))]
+
+
+def phase_engine_graphs(main_run):
+    """Phase 14b: the engine on phase 4's three videos through its graphs
+    against the eager body (`_run.__wrapped__`), fp32 and the bf16 default:
+    masks bitwise, K1's launches by counter (3, the capture's and two
+    replays) and by name in a profiled pass, no wait in a replayed
+    dispatch, frames/s of each (in turns), a profiled pass's busy time and
+    idle share, captures and the memory reserved; then a seeded stream of
+    STREAM_VIDEOS mixed lengths (bf16 default) through a fresh engine of
+    each kind: captures, warm-ups, replays, wall time, masks bitwise."""
+    state, videos = main_run["state"], main_run["videos"]
+    frames = sum(v.shape[1] for v in videos)
+    out, bad = {}, []
+    for name, dtype in (("fp32", torch.float32), ("bf16", "auto")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager = _eager_engine(state, dtype=dtype)
+        eager.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")
+        eager_masks, _ = _engine_pass(eager, videos)
+        torch.cuda.empty_cache()
+        reserved_eager = torch.cuda.memory_reserved()
+        engine = VideoSegmenter(state, dtype=dtype)
+        counts = _count_calls(engine._run)
+        engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")  # warm-up
+        decoder_heads.launches = 0
+        masks, _ = _engine_pass(engine, videos)       # the capture at video 0, two replays
+        k1 = decoder_heads.launches
+        torch.cuda.empty_cache()
+        reserved_graphed = torch.cuda.memory_reserved()
+        times = {"eager": [], "graphed": []}
+        for kind in ("eager", "graphed", "graphed", "eager"):
+            got, sec = _engine_pass(eager if kind == "eager" else engine, videos)
+            times[kind].append(sec)
+            if not all(np.array_equal(a, b) for a, b in zip(got, eager_masks)):
+                bad.append(f"{name}: a timed {kind} pass differs")
+        wall, busy, named, _ = profile_replay(lambda: _engine_pass(engine, videos))
+        _, error = sync_error(lambda: engine.segment_video_async(videos[1], num_clips=5, step=1,
+                                                                 fuse_method="simple"))
+        bitwise = all(np.array_equal(a, b) for a, b in zip(masks, eager_masks))
+        fps = {k: frames / statistics.median(v) for k, v in times.items()}
+        res = out[name] = dict(
+            bitwise=bitwise, k1_launches=k1, k1_by_name=named[0], sync_error=error,
+            frames_per_s=fps, seconds=times, replay_wall_ms=wall, replay_busy_ms=busy,
+            replay_idle_share=1.0 - busy / wall, captures=counts["captures"],
+            warm_ups=counts["warm_ups"], graphs=len(engine._run.graphs),
+            reserved_gib={"eager": reserved_eager / 2**30, "graphed": reserved_graphed / 2**30})
+        log(f"engine graphs ({name}): masks bitwise the eager body's {bitwise}; K1 launches "
+            f"{k1} (counter, 3 videos; the capture's and two replays'), {named[0]} by name in a "
+            f"profiled pass; waits in a replayed dispatch: {0 if error is None else error}; "
+            f"frames/s eager {fps['eager']:.1f}, graphed {fps['graphed']:.1f} (median of 2 "
+            f"passes each, in turns, host clock, {frames} frames); a profiled "
+            f"graphed pass: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle "
+            f"{res['replay_idle_share']:.1%}); warm-ups {counts['warm_ups']}, captures "
+            f"{counts['captures']}; reserved GiB after eager {res['reserved_gib']['eager']:.3f}, "
+            f"with the graphed engine {res['reserved_gib']['graphed']:.3f}")
+        if not bitwise or k1 != len(videos) or named[0] != len(videos) or error is not None \
+                or counts["captures"] != 1:
+            bad.append(name)
+        del eager, engine, eager_masks, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream = stream_videos()
+    eager = _eager_engine(state)
+    engine = VideoSegmenter(state)
+    counts = _count_calls(engine._run)
+    want, eager_s = _engine_pass(eager, stream)
+    got, graphed_s = _engine_pass(engine, stream)
+    keys = {_engine_key(engine, v.shape[1]) for v in stream}
+    replays = sum(e.replays for e in engine._run.graphs.values())
+    res = out["stream"] = dict(
+        lengths=[int(v.shape[1]) for v in stream], keys=len(keys), warm_ups=counts["warm_ups"],
+        captures=counts["captures"], replays=replays, eager_s=eager_s, graphed_s=graphed_s,
+        bitwise=all(np.array_equal(a, b) for a, b in zip(got, want)))
+    log(f"  stream of {STREAM_VIDEOS} videos, lengths {res['lengths']} (bf16 default, fresh "
+        f"engines): {len(keys)} keys; warm-ups {res['warm_ups']}, captures {res['captures']}, "
+        f"replays {replays}; wall eager {eager_s:.3f} s, graphed {graphed_s:.3f} s (host clock, "
+        f"first pass of each, set-up of each key included); masks bitwise {res['bitwise']}")
+    if not res["bitwise"]:
+        bad.append("stream")
+    del eager, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"engine graphs: {bad}")
+    return out
+
+
+def phase_clip_graphs():
+    """Phase 14c: `ClipForward` (fp32, 8 clips a chunk, motion head) on
+    phase 7's 16 clips through its graphs against its eager forward
+    (`_forward.__wrapped__`): outputs bitwise, K1's launches by counter (2:
+    two replays), host ms of a call (median of 5, in turns)."""
+    from echoflow_torch.infer.clips import ClipForward
+
+    state, video, _, starts = clip_workload()
+    clips = np.stack([video[:, s:s + 32] for s in starts])
+    graphed_fwd = ClipForward(state, dtype=torch.float32, forward_chunk=CLIP_CHUNK)
+    eager = ClipForward(state, dtype=torch.float32, forward_chunk=CLIP_CHUNK)
+    eager._forward = eager._forward.__wrapped__
+    want = eager(clips)
+    graphed_fwd(clips)                  # the warm-up, then the capture and its replay
+    decoder_heads.launches = 0
+    got = graphed_fwd(clips)
+    k1 = decoder_heads.launches
+    bitwise = all(np.array_equal(a, b) for a, b in zip(got, want))
+    times = {"eager": [], "graphed": []}
+    for _ in range(5):
+        for kind, fn in (("eager", eager), ("graphed", graphed_fwd)):
+            t0 = time.perf_counter()
+            fn(clips)
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    log(f"clip graphs: outputs bitwise the eager forward's {bitwise}; K1 launches {k1} "
+        f"(implied {-(-len(starts) // CLIP_CHUNK)}); a call of {len(starts)} clips, host ms "
+        f"(to numpy, median of 5, in turns): eager {ms['eager']:.1f}, graphed "
+        f"{ms['graphed']:.1f}; graphs {len(graphed_fwd._forward.graphs)}")
+    del graphed_fwd, eager
+    torch.cuda.empty_cache()
+    if not bitwise or k1 != -(-len(starts) // CLIP_CHUNK):
+        raise AssertionError(f"clip graphs: bitwise {bitwise}, K1 {k1}")
+    return {"bitwise": bitwise, "k1_launches": k1, "ms": ms, "times_ms": times}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2421,7 +2793,7 @@ def main():
     clips = timed("7", phase_clips)
     cli = timed("8", phase_cli)
     dp = {"train": timed("9a", phase_dp_train), "engine": timed("9b", phase_dp_engine, main_run)}
-    del main_run
+    main_run = {k: main_run[k] for k in ("state", "videos")}   # for phase 14b
     dp["dryrun"] = timed("9c", phase_dp_dryrun)
     camus = timed("10", phase_camus)
     precision = {"steps": timed("11a", phase_precision_steps),
@@ -2438,6 +2810,11 @@ def main():
     dp_graphs, dp_fit = timed("13a", phase_dp_graphs)
     rollout_graphs = timed("13b", phase_graphed_rollouts, clips.pop("rollout_inputs"))
     camus_graphs = timed("13c", phase_graphed_camus)
+    gc.collect()
+    torch.cuda.empty_cache()
+    repeat = timed("14a", phase_repeatable_training)
+    engine_graphs = timed("14b", phase_engine_graphs, main_run)
+    clip_graphs = timed("14c", phase_clip_graphs)
     log(f"seconds by phase: {seconds}")
 
     main_variant = k1[False]
@@ -2482,6 +2859,14 @@ def main():
         "dp_fit_launches": dp_fit["launches"][0],
         "rollout_graph_launches": sum(r["launches"][0] for r in rollout_graphs.values()),
         "rollout_graph_launches_by_name": sum(r["by_name"][0] for r in rollout_graphs.values()),
+        # Phase 14b: phase 4's three videos through the engine's graphs
+        # (counter: the capture's replay and two replays; by name in a
+        # profiled pass of replays), fp32 and bf16; 14c: phase 7's 16
+        # clips through ClipForward's graphs (two replays, counter).
+        "engine_graph_launches": {k: engine_graphs[k]["k1_launches"] for k in ("fp32", "bf16")},
+        "engine_graph_launches_by_name": {k: engine_graphs[k]["k1_by_name"]
+                                          for k in ("fp32", "bf16")},
+        "clip_graph_launches": clip_graphs["k1_launches"],
     }]
     replaces = {"warp_forward": "echoflow/ops/pallas/warp_kernel.py:67",
                 "warp_image_grad": "echoflow/ops/pallas/warp_kernel.py:81",
@@ -2507,7 +2892,7 @@ def main():
             # Phase 12: the graphed step's launches, 4 steps of each variant
             # (the warm-up, the capture's replay, two replays), from the
             # counter (each replay adds the launches its capture made); by
-            # kernel name in one profiled replay (K3: two kernels a launch).
+            # kernel name in one profiled replay (K3: four kernels a launch).
             "graph_launches": {v: sum(rec["launches"][list(replaces).index(name)]
                                       for rec in r["runs"][-1]["steps"])
                                for v, r in graphs.items()},
@@ -2518,7 +2903,7 @@ def main():
             # from the counter.
             "trainer_launches": trainer["launches"][list(replaces).index(name)],
             # Phase 13a: one replay of each graphed data-parallel step, from
-            # the counter and by kernel name (K3: two a launch); 13b: one
+            # the counter and by kernel name (K3: four a launch); 13b: one
             # replay of each rollout's graph, counter and nodes by name.
             "dp_graph_launches": {v: r["graph_launches"][0][list(replaces).index(name)]
                                   for v, r in dp_graphs.items()},
@@ -2532,6 +2917,14 @@ def main():
             "rollout_graph_launches_by_name": sum(r["by_name"][1 + list(replaces).index(name)]
                                                   for r in rollout_graphs.values()),
         })
+    # Phase 14a: K3 sums in a fixed order; its device time a launch in an
+    # eager fp32 step, and how far two eager fp32 runs of phase 12's recipe
+    # are apart after 4 steps (parameter moves, relative L2).
+    next(k for k in kernels if k["name"] == "warp_image_grad").update(
+        deterministic=all(r["run_to_run_abs_diff"] == 0.0
+                          for r in warp["warp_image_grad"].values()),
+        step_us=repeat["k3_us_in_step"],
+        run_to_run_param_dist=repeat["settings"]["a"]["param_dist"])
     # Phase 7: K2 in the bilinear rollouts of infer/propagate.py.
     next(k for k in kernels if k["name"] == "warp_forward").update(
         inference_launches=clips["k2_launches"], inference_ms=clips["k2_ms_per_launch"],
@@ -2549,7 +2942,12 @@ def main():
                     for k, v in dp_graphs.items()) + "; rollouts ms eager / graphed: "
         + ", ".join(f"{k} {v['eager_ms']:.3f} / {v['graphed_ms']:.3f}"
                     for k, v in rollout_graphs.items()) + f"; CAMUS graphed vs eager loss rel "
-        + ", ".join(f"{k} {v['rel']:.1e}" for k, v in camus_graphs.items()) + f" ({smi})")
+        + ", ".join(f"{k} {v['rel']:.1e}" for k, v in camus_graphs.items())
+        + "; engine frames/s eager / graphed: " + ", ".join(
+            f"{k} {engine_graphs[k]['frames_per_s']['eager']:.1f} / "
+            f"{engine_graphs[k]['frames_per_s']['graphed']:.1f}" for k in ("fp32", "bf16"))
+        + f"; clip forward ms eager / graphed {clip_graphs['ms']['eager']:.1f} / "
+        f"{clip_graphs['ms']['graphed']:.1f} ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -54,29 +54,36 @@
 //
 // K3 is a scatter: every pixel adds a term to each of its four corners in
 // every channel, and each element of d_img takes terms from about four
-// pixels. On an H100 what bounds it is the count of atomics each thread
-// issues, not their bytes: 4*C scalar fp32 atomics per pixel (one per
-// corner and channel, four channel planes apart) cost 6-10 us at the
-// label shape under near-identity to smooth motion and 22 us under rough
-// motion, where the same terms as one 16-byte atomic per corner (4
-// channels) cost 3.4-3.8 and 5.9 us (PERF.md). Summing in shared memory
-// instead does not pay here: fp32 atomicAdd on shared memory compiles to
-// a compare-and-swap loop (ATOMS.CAST.SPIN), and every window design
-// measured slower than the parent on smooth motion. So K3 makes two launches:
-//   1. scatter into a zeroed channels-last scratch accumulator (N*H*W x C
-//      rounded up to 4): one float4 atomicAdd (sm_90) carries a corner's 4
-//      channels; lanes hold consecutive pixels, and where a pixel's right
-//      corner is the next pixel's left corner a shuffle joins the two
-//      terms, so under smooth motion a row costs one atomic per pixel, not
-//      two;
-//   2. transpose the accumulator into d_img (N, C, H, W) with plain
-//      stores: every element is written once, so d_img needs no memset
-//      (the scratch does; the caller zeroes it).
-// Both are bound by latency and the launch (an empty grid of the same size
-// takes ~1 us), not by the 1.2 us byte bound. The summation order is still
-// run-dependent (atomics arrive in any order, and a joined pair is summed
-// before its atomic), so K3 holds its per-element bound
-// (`image_grad_tolerance`) and is not bitwise reproducible.
+// pixels. echoflow's Pallas K3 adds its row blocks in grid order, so its
+// training repeats bit for bit; fp32 atomics add in whatever order the
+// blocks and warps run, and an earlier float4-atomic K3 made two training
+// runs from one state drift apart. This K3 sums every element's terms in
+// one fixed order, whatever order its blocks run in, by sorting each
+// destination's sources (a counting sort: only integer atomics, which are
+// order-free, decide where an entry lands, and the sort undoes that):
+//   1. count: each source pixel adds 1 to count[dest] for each corner
+//      inside the image (integer atomics) and keeps the count it found,
+//      its entry's rank in dest's list;
+//   2. place: each destination gets a segment of count[dest] slots of the
+//      entry list (a warp sums 256 destinations' counts with shuffles and
+//      takes its segments with one atomic on a running total);
+//   3. fill: each source writes the key corner * N*H*W + source into its
+//      rank's slot of each corner's segment (no atomics);
+//   4. reduce (`warp_image_grad_kernel<C>`): a thread a destination sorts
+//      its segment by key (segments are short, ~4 entries; an insertion
+//      sort in place), then, per channel, sums wy (wx g) of each corner's sources
+//      in source order from 0 and adds each corner's sum to the element in
+//      corner order (top-left, top-right, bottom-left, bottom-right): the
+//      order of the plain version's four `index_add_` calls, each of which
+//      sums one destination's duplicates before adding them, as torch's
+//      deterministic `index_add_` on CUDA does. Every element of d_img is
+//      written once (0 where no source lands), so d_img needs no zeroing.
+// The scratch (count, the running total, the segments' starts, 4*N*H*W
+// ranks and 4*N*H*W entries, int32) comes from the caller; the function
+// zeroes the counts itself (cudaMemsetAsync), so a graph of it replays
+// from nothing. On an H100 at the label warp's shape it takes about 40 us
+// against a 1.2 us byte bound, most of it the reduce pass (PERF.md),
+// several times the float4-atomic K3's time.
 //
 // K4 is a gather: per pixel 4*C corner loads and C loads of g, then a
 // channel sum. With C a runtime loop each channel's loads waited on the
@@ -91,8 +98,8 @@
 //
 // Arithmetic uses __fadd_rn/__fmul_rn so no multiply-add is contracted:
 // every value the plain PyTorch versions compute elementwise is reproduced
-// bit for bit (K2 and K4 bitwise; K3's terms bitwise, their sums in another
-// order).
+// bit for bit (K2 and K4 bitwise; K3's terms bitwise, and summed in the
+// plain version's order of corners and sources).
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // every int is int. Each function launches on the given stream, allocates
@@ -202,93 +209,153 @@ warp_forward_kernel(const float* __restrict__ img_a, const float* __restrict__ i
   }
 }
 
-// K3 helper: whether a lane's row term joins its neighbours'. Lanes hold
-// consecutive pixels, and under smooth motion a pixel's right corner
-// (key_r) is the next pixel's left corner (key): the next lane then adds
-// this lane's right term to its left term ("take") and this lane skips its
-// own atomic for it ("give"). Keys are flat pixel indices, -1 for none.
-struct RowJoin {
-  bool take, give;
+// K3's corners of a source pixel, in the plain version's order: 0 top-left,
+// 1 top-right, 2 bottom-left, 3 bottom-right; -1 for a corner outside the
+// image. Destinations are flat pixel indices in [0, N*H*W).
+struct Dests {
+  int d[4];
 };
 
-__device__ __forceinline__ RowJoin row_join(int key, int key_r) {
-  const int lane = threadIdx.x & 31;
-  const int prev_r = __shfl_up_sync(kFull, key_r, 1);
-  const int next = __shfl_down_sync(kFull, key, 1);
-  return {lane > 0 && key >= 0 && prev_r == key, lane < 31 && key_r >= 0 && next == key_r};
+__device__ __forceinline__ Dests dests(const Corner& k, int b, int hw, int w) {
+  const int tl = b * hw + k.y0 * w + k.x0;
+  return {{tl, k.hx ? tl + 1 : -1, k.hy ? tl + w : -1, k.hx && k.hy ? tl + w + 1 : -1}};
 }
 
-// K3, pass 1: scatter. acc is a zeroed channels-last accumulator, N*H*W
-// pixels x C4 floats (C rounded up to 4). A thread takes a pixel and, per
-// chunk of 4 channels (C compiled when it is 1-4; 0: any, in chunks), adds
-// its corners' terms to acc with 16-byte atomics: one atomic carries a
-// corner's 4 channels. A row's right term is joined to the next lane's
-// left term where they meet.
-template <int C>
+// K3, pass 1: count[dest] += 1 for each corner of each source pixel i;
+// rank[corner * m + i] = the count before (the entry's slot in dest's
+// segment, in the order the atomics arrived).
 __global__ void __launch_bounds__(kThreads)
-warp_image_grad_kernel(const float* __restrict__ g, const float* __restrict__ px,
-                       const float* __restrict__ py, float* __restrict__ acc,
-                       int n, int c_any, int h, int w) {
-  const int c = C > 0 ? C : c_any;
-  const int c4 = (c + 3) & ~3;
-  const int hw = h * w, total = n * hw;
+warp_image_grad_kernel_count(const float* __restrict__ px, const float* __restrict__ py,
+                             int* __restrict__ count, int* __restrict__ rank,
+                             int n, int h, int w) {
+  const int hw = h * w, m = n * hw;
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool on = i < total;
-  const int q = on ? i : 0;
-  const int b = q / hw, p = q - b * hw;
-  const Corner k = corner(__ldg(px + q), __ldg(py + q), h, w);
-  const int kt = on ? b * hw + k.y0 * w + k.x0 : -1;
-  const int kb = on && k.hy ? kt + w : -1;
-  const RowJoin jt = row_join(kt, kt >= 0 && k.hx ? kt + 1 : -1);
-  const RowJoin jb = row_join(kb, kb >= 0 && k.hx ? kb + 1 : -1);
-  const float wx0 = __fsub_rn(1.f, k.fx), wy0 = __fsub_rn(1.f, k.fy);
-  const float* gs = g + (int64_t)b * c * hw + p;
-  for (int c0 = 0; c0 < c; c0 += 4) {
-    float tl[4], tr[4], bl[4], br[4];
+  if (i >= m) return;
+  const Dests t = dests(corner(__ldg(px + i), __ldg(py + i), h, w), i / hw, hw, w);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float gv = on && c0 + j < c ? __ldg(gs + (int64_t)(c0 + j) * hw) : 0.f;
-      const float gx0 = __fmul_rn(wx0, gv), gx1 = __fmul_rn(k.fx, gv);
-      tl[j] = __fmul_rn(wy0, gx0);
-      tr[j] = __fmul_rn(wy0, gx1);
-      bl[j] = __fmul_rn(k.fy, gx0);
-      br[j] = __fmul_rn(k.fy, gx1);
-      const float tr_prev = __shfl_up_sync(kFull, tr[j], 1);
-      const float br_prev = __shfl_up_sync(kFull, br[j], 1);
-      if (jt.take) tl[j] = __fadd_rn(tl[j], tr_prev);
-      if (jb.take) bl[j] = __fadd_rn(bl[j], br_prev);
-    }
-    if (!on) continue;
-    float4* at = reinterpret_cast<float4*>(acc + (int64_t)kt * c4 + c0);
-    atomicAdd(at, make_float4(tl[0], tl[1], tl[2], tl[3]));
-    if (k.hx && !jt.give) atomicAdd(at + c4 / 4, make_float4(tr[0], tr[1], tr[2], tr[3]));
-    if (k.hy) {
-      float4* ab = reinterpret_cast<float4*>(acc + (int64_t)kb * c4 + c0);
-      atomicAdd(ab, make_float4(bl[0], bl[1], bl[2], bl[3]));
-      if (k.hx && !jb.give) atomicAdd(ab + c4 / 4, make_float4(br[0], br[1], br[2], br[3]));
-    }
+  for (int q = 0; q < 4; ++q)
+    if (t.d[q] >= 0) rank[q * m + i] = atomicAdd(count + t.d[q], 1);
+}
+
+constexpr int kPlacePerLane = 8;   // consecutive destinations a lane places
+
+// K3, pass 2: start[dest] = the first slot of dest's segment of the entry
+// list. A warp takes 32 x kPlacePerLane consecutive destinations, scans
+// their counts with shuffles and claims its segments with one atomic on
+// the running total: where a warp's segments land depends on the order the
+// warps run in; what a destination's segment holds does not.
+__global__ void __launch_bounds__(kThreads)
+warp_image_grad_kernel_place(const int* __restrict__ count, int* __restrict__ total,
+                             int* __restrict__ start, int m) {
+  const int lane = threadIdx.x & 31;
+  const int64_t first = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kPlacePerLane;
+  int c[kPlacePerLane];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < kPlacePerLane; ++j) {
+    c[j] = first + j < m ? count[first + j] : 0;
+    sum += c[j];
+  }
+  int inclusive = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFull, inclusive, off);
+    if (lane >= off) inclusive += v;
+  }
+  int base = 0;
+  if (lane == 31 && inclusive > 0) base = atomicAdd(total, inclusive);
+  int at = __shfl_sync(kFull, base, 31) + inclusive - sum;
+#pragma unroll
+  for (int j = 0; j < kPlacePerLane; ++j) {
+    if (first + j < m) start[first + j] = at;
+    at += c[j];
   }
 }
 
-// K3, pass 2: d_img (N, C, H, W) from acc, a thread a pixel, every element
-// written once.
+// K3, pass 3: each corner of each source writes its key, corner * m +
+// source, into its rank's slot of the corner's segment.
+__global__ void __launch_bounds__(kThreads)
+warp_image_grad_kernel_fill(const float* __restrict__ px, const float* __restrict__ py,
+                            const int* __restrict__ start, const int* __restrict__ rank,
+                            int* __restrict__ entries, int n, int h, int w) {
+  const int hw = h * w, m = n * hw;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= m) return;
+  const Dests t = dests(corner(__ldg(px + i), __ldg(py + i), h, w), i / hw, hw, w);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (t.d[q] >= 0) entries[start[t.d[q]] + rank[q * m + i]] = q * m + i;
+}
+
+// K3, pass 4, the sum of one destination's sorted keys key[0..n-1] for the
+// channels c0 .. c0 + 3 (those below c): each corner's terms wy (wx g) in
+// source order from 0, the corners' sums added in corner order.
+__device__ __forceinline__ void sum_sorted(const int* key, int n, const float* __restrict__ gb,
+                                           const float* __restrict__ px,
+                                           const float* __restrict__ py, int m, int c0, int c,
+                                           int hw, int h, int w, float acc[4]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  int group = -1;
+  for (int e = 0; e < n; ++e) {
+    const int k = key[e];
+    const int q = k / m, src = k - q * m;
+    if (q != group) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (group >= 0) acc[j] = __fadd_rn(acc[j], part[j]);
+        part[j] = 0.f;
+      }
+      group = q;
+    }
+    const Corner t = corner(__ldg(px + src), __ldg(py + src), h, w);
+    const float wx = (q & 1) ? t.fx : __fsub_rn(1.f, t.fx);
+    const float wy = (q & 2) ? t.fy : __fsub_rn(1.f, t.fy);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c0 + j < c)
+        part[j] = __fadd_rn(part[j], __fmul_rn(wy, __fmul_rn(wx, __ldg(
+            gb + (int64_t)(c0 + j) * hw + src))));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    acc[j] = group >= 0 ? __fadd_rn(acc[j], part[j]) : 0.f;
+}
+
+// K3, pass 4: d_img (N, C, H, W), a thread a destination pixel. It sorts
+// its segment by key in place (insertion sort: segments hold about 4
+// entries at the training shapes, 2-4% more than 8), then per chunk of 4
+// channels (C compiled when it is 1-4; 0: any, in chunks) sums each
+// corner's terms wy (wx g) in source order from 0 and adds the corner's
+// sum to the element, corners in order (`sum_sorted`). (Sorting up to 8
+// entries in registers with every gather issued at once, or up to 32 in
+// shared memory, measured no faster.)
 template <int C>
 __global__ void __launch_bounds__(kThreads)
-warp_image_grad_kernel_transpose(const float* __restrict__ acc, float* __restrict__ dimg,
-                                 int n, int c_any, int h, int w) {
+warp_image_grad_kernel(const float* __restrict__ g, const float* __restrict__ px,
+                       const float* __restrict__ py, const int* __restrict__ count,
+                       const int* __restrict__ start, int* __restrict__ entries,
+                       float* __restrict__ dimg, int n, int c_any, int h, int w) {
   const int c = C > 0 ? C : c_any;
-  const int c4 = (c + 3) & ~3;
-  const int hw = h * w;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n * hw) return;
-  const int b = i / hw, p = i - b * hw;
-  float* d = dimg + (int64_t)b * c * hw + p;
+  const int hw = h * w, m = n * hw;
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= m) return;
+  const int b = d / hw, p = d - b * hw;
+  const int size = count[d], begin = start[d];
+  const float* gb = g + (int64_t)b * c * hw - (int64_t)b * hw;   // + source index
+  float* out = dimg + (int64_t)b * c * hw + p;
+  int* list = entries + begin;
+  for (int a = 1; a < size; ++a) {
+    const int k = list[a];
+    int z = a;
+    for (; z > 0 && list[z - 1] > k; --z) list[z] = list[z - 1];
+    list[z] = k;
+  }
   for (int c0 = 0; c0 < c; c0 += 4) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(acc + (int64_t)i * c4 + c0));
-    const float vs[4] = {v.x, v.y, v.z, v.w};
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    sum_sorted(list, size, gb, px, py, m, c0, c, hw, h, w, acc);
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (c0 + q < c) d[(int64_t)(c0 + q) * hw] = vs[q];
+    for (int j = 0; j < 4; ++j)
+      if (c0 + j < c) out[(int64_t)(c0 + j) * hw] = acc[j];
   }
 }
 
@@ -428,9 +495,10 @@ int forward(const ForwardArgs& a, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// K3's scratch, in floats: the channels-last accumulator.
-inline int64_t image_grad_scratch(int n, int c, int h, int w) {
-  return (int64_t)n * h * w * ((c + 3) & ~3);
+// K3's scratch, in int32: count[m], the running total, start[m], rank[4 m]
+// and entries[4 m], m = N*H*W.
+inline int64_t image_grad_scratch(int n, int h, int w) {
+  return 10 * (int64_t)n * h * w + 1;
 }
 
 }  // namespace
@@ -455,32 +523,43 @@ extern "C" int echoflow_warp_forward2(const void* img_a, const void* img_b, cons
                   n, ca, cb, h, w}, forward_threads((int64_t)n * h * w), stream);
 }
 
-// Floats of scratch the caller passes to echoflow_warp_image_grad.
+// int32 elements of scratch the caller passes to echoflow_warp_image_grad.
 extern "C" long long echoflow_warp_image_grad_scratch(int n, int c, int h, int w) {
-  return image_grad_scratch(n, c, h, w);
+  (void)c;
+  return image_grad_scratch(n, h, w);
 }
 
-// K3: scatter into the scratch (the accumulator, zeroed by the caller),
-// then write d_img from it. d_img needs no zeroing: pass 2 writes every
-// element. The scratch must be 16-byte aligned (the accumulator's vector
-// atomics), and its size below 2^31 floats (int pixel indices).
+// K3: count, place, fill and reduce (the four passes above) on the stream,
+// the counts zeroed first. The scratch needs no zeroing; d_img needs none
+// either (pass 4 writes every element). Refuses 2^29 pixels or more (the
+// entry keys, corner * N*H*W + source, are int).
 extern "C" int echoflow_warp_image_grad(const void* g, const void* px, const void* py,
                                         void* dimg, void* scratch, int n, int c, int h, int w,
                                         void* stream) {
-  if ((int64_t)n * h * w == 0 || c == 0) return 0;
-  if ((reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
-      image_grad_scratch(n, c, h, w) >= ((int64_t)1 << 31))
-    return (int)cudaErrorInvalidValue;
+  const int64_t m = (int64_t)n * h * w;
+  if (m == 0 || c == 0) return 0;
+  if (4 * m >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto G = static_cast<const float*>(g);
   const auto X = static_cast<const float*>(px);
   const auto Y = static_cast<const float*>(py);
   const auto D = static_cast<float*>(dimg);
-  const auto A = static_cast<float*>(scratch);
+  int* count = static_cast<int*>(scratch);
+  int* total = count + m;
+  int* start = total + 1;
+  int* rank = start + m;
+  int* entries = rank + 4 * m;
+  const cudaError_t err = cudaMemsetAsync(count, 0, (size_t)(m + 1) * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
   const unsigned blocks = blocks_for(n, h, w);
-#define ECHOFLOW_K3(CC)                                                              \
-  warp_image_grad_kernel<CC><<<blocks, kThreads, 0, s>>>(G, X, Y, A, n, c, h, w);   \
-  warp_image_grad_kernel_transpose<CC><<<blocks, kThreads, 0, s>>>(A, D, n, c, h, w)
+  const int64_t per_block = (int64_t)kThreads * kPlacePerLane;
+  const unsigned place_blocks = (unsigned)((m + per_block - 1) / per_block);
+  warp_image_grad_kernel_count<<<blocks, kThreads, 0, s>>>(X, Y, count, rank, n, h, w);
+  warp_image_grad_kernel_place<<<place_blocks, kThreads, 0, s>>>(count, total, start, (int)m);
+  warp_image_grad_kernel_fill<<<blocks, kThreads, 0, s>>>(X, Y, start, rank, entries, n, h, w);
+#define ECHOFLOW_K3(CC)                                                                      \
+  warp_image_grad_kernel<CC><<<blocks, kThreads, 0, s>>>(G, X, Y, count, start, entries, D,  \
+                                                         n, c, h, w)
   switch (c) {
     case 1: ECHOFLOW_K3(1); break;
     case 2: ECHOFLOW_K3(2); break;

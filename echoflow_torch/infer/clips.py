@@ -17,6 +17,12 @@ run the module's own forward.
 Only the clips that exist are forwarded: echoflow pads the stack to a whole
 number of chunks for XLA, the port's last chunk is shorter (the outputs of
 the real clips are the same).
+
+On the card each chunk's forward runs as a CUDA graph, as echoflow jits its
+`lax.map` over the chunks (`utils/graphs.GraphedFunction`): one graph for
+each chunk shape (so a shorter last chunk is a second graph), made at the
+second chunk of that shape and replayed after that. `_forward.__wrapped__`
+is the eager forward; the CPU runs it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from echoflow_torch.models.fast_forward import folded_forward
 from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
 from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet
 from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
 
 CLIP_LEN = 32
 
@@ -73,6 +80,15 @@ class ClipForward:
         else:   # fp32 parameters, BatchNorm statistics included (flax's rule)
             model.compute_dtype = self.dtype
         self._model = model.to(self.device)
+        if self.device.type == "cuda":
+            self._forward = self._graphed(self._forward)
+
+    def _graphed(self, forward, wrapper=GraphedFunction):
+        """`forward` (the eager chunk forward) as CUDA graphs of the model:
+        its parameters are the graphs' bindings, its pool their memory."""
+        model = self._model
+        return wrapper(forward, memory=model_memory(model, self.device),
+                       bindings=lambda **others: module_bindings(model))
 
     @torch.no_grad()
     def _forward(self, xs: torch.Tensor):

@@ -21,6 +21,18 @@ On the card the decoder tail of every forward is the CUDA kernel of
 `ops/decoder_heads.py`; host operands are cached per video length on the
 device; `segment_videos` dispatches ahead from pinned host memory.
 
+On one CUDA device the device work of a video (steps 1-6 after the
+upload, `_run`) runs as CUDA graphs, as echoflow jits `run`
+(`utils/graphs.GraphedFunction`): one graph for each of echoflow's keys
+(t_pad, k_num, n_fwd, fuse_method, mono), with the video's dtype and
+(H, W), made at the second video with the key (the first runs eagerly)
+and replayed after that; the per-length operands are the graph's inputs,
+so two lengths of one bucket with the same number of forwarded clips share
+a graph. The wrapper keeps the graphs of its 8 most recently used keys.
+`engine._run.__wrapped__` is the eager body. On the CPU, and on several
+devices (`devices`, whose replicas and streams do not fit one capture),
+the engine runs the eager body.
+
 With `devices` the forward is data-parallel (echoflow's `mesh`): each chunk
 of clips is split into one contiguous shard per device, each shard is
 forwarded by that device's replica of the folded model (with the kernel),
@@ -33,7 +45,8 @@ masks are the same either way).
 Each layer runs inside a `torch.profiler.record_function` range named
 `echoflow_torch.<layer>` (copies, shift, backbone, projections,
 decoder_tail, model_forward, reinterp, fusion), so `profile_torch.py` can
-group device time by layer.
+group device time by layer; a replay fires no range, so it profiles the
+eager body.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ import contextlib
 import copy
 import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,6 +71,7 @@ from echoflow_torch.ops.resize import _linear_resize_matrix_np, resize_linear
 from echoflow_torch.parallel.mesh import data_devices
 from echoflow_torch.utils.concurrency import get_or_build
 from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
 
 CLIP_LEN = 32
 
@@ -276,9 +291,21 @@ class VideoSegmenter:
                           if dev != self.device}
         self._model = self._replicas[self.device] = model.to(self.device)
         self._operand_cache = OrderedDict()
-        # segment_videos stages on a worker thread; direct segment_video
-        # calls may race it on the operand cache.
         self._cache_lock = threading.Lock()
+        # Every video is staged and dispatched on one thread of the engine
+        # (made at first use): cuBLAS and cuDNN make their handles per
+        # thread at its first call, which a graph capture refuses, so a
+        # key's warm-up and capture must run on one thread.
+        self._dispatcher = None
+        if self.device.type == "cuda" and len(self._devices) == 1:
+            self._run = self._graphed(self._run)
+
+    def _graphed(self, run, wrapper=GraphedFunction):
+        """`run` (the eager body) as CUDA graphs of the engine's model: its
+        parameters are the graphs' bindings, its pool their memory."""
+        model = self._model
+        return wrapper(run, memory=model_memory(model, self.device),
+                       bindings=lambda **others: module_bindings(model))
 
     def _chunk_plan(self, n_fwd: int):
         """Balanced forward chunking for `n_fwd` clips: n_chunks is the
@@ -385,13 +412,24 @@ class VideoSegmenter:
             stack = labels.movedim(1, 0)[gather_idx, k_idx]         # (T, K, H, W)
             return _packbits(fuse_frames(stack, valid, method=fuse_method))
 
+    def _dispatch(self, video, num_clips, step, fuse_method, mono):
+        """A Future of `_stage_and_run` on the engine's dispatch thread."""
+        with self._cache_lock:
+            if self._dispatcher is None:
+                self._dispatcher = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="echoflow-dispatch")
+        return self._dispatcher.submit(self._stage_and_run, video, num_clips, step,
+                                       fuse_method, mono)
+
     # ----------------------------------------------------------------- api
     def segment_video_async(self, video: np.ndarray, num_clips: int = 1,
                             step: int = 1, fuse_method: str = "simple",
                             mono: bool | None = None):
         """Enqueue segmentation without waiting for the card; returns
         (pending, (length, width)). `pending.numpy()` waits and gives the
-        packed mask; `_unpackbits(..., width)[:length]` unpacks it.
+        packed mask; `_unpackbits(..., width)[:length]` unpacks it. The
+        staging and dispatch run on the engine's dispatch thread; this call
+        waits for them, not for the card.
 
         `mono=None` detects grayscale-in-RGB videos (all three channels
         bit-identical, the normal case for echo AVIs) and ships one
@@ -399,6 +437,11 @@ class VideoSegmenter:
         identical masks. Pass False to force the RGB path."""
         if fuse_method not in ("majority", "simple", "staple", "softmax"):
             raise ValueError(f"unknown fuse method: {fuse_method}")
+        return self._dispatch(video, num_clips, step, fuse_method, mono).result()
+
+    def _stage_and_run(self, video, num_clips, step, fuse_method, mono):
+        """`segment_video_async`'s work, on the dispatch thread: the host
+        operands, the pinned upload, the device work, the pinned download."""
         length = int(video.shape[1])
         t_pad = max(self.bucket, -(-length // self.bucket) * self.bucket)
         k_num, n_fwd, dev_ops = self._operands(length, num_clips, step, t_pad)
@@ -444,23 +487,23 @@ class VideoSegmenter:
                        fuse_method: str = "simple", queue_depth: int = 3):
         """Segment a sequence of videos with dispatch-ahead pipelining: up
         to `queue_depth` videos are in flight; staging and dispatch run on
-        one worker thread (FIFO, so order is kept) and results are fetched
-        on background threads, so host->device copies, the card's work and
-        the caller's per-video work overlap. Yields (L, H, W) uint8 masks
-        in order."""
+        the engine's dispatch thread (FIFO, so order is kept) and results
+        are fetched on background threads, so host->device copies, the
+        card's work and the caller's per-video work overlap. Yields
+        (L, H, W) uint8 masks in order."""
         from collections import deque
-        from concurrent.futures import ThreadPoolExecutor
+
+        if fuse_method not in ("majority", "simple", "staple", "softmax"):
+            raise ValueError(f"unknown fuse method: {fuse_method}")
 
         def fetch(handle_future):
             pending, (length, width) = handle_future.result()
             return _unpackbits(pending.numpy(), width)[:length]
 
-        with ThreadPoolExecutor(max_workers=1) as dispatch_pool, \
-                ThreadPoolExecutor(max_workers=2) as fetch_pool:
+        with ThreadPoolExecutor(max_workers=2) as fetch_pool:
             inflight: deque = deque()
             for video in videos:
-                handle = dispatch_pool.submit(
-                    self.segment_video_async, video, num_clips, step, fuse_method)
+                handle = self._dispatch(video, num_clips, step, fuse_method, None)
                 inflight.append(fetch_pool.submit(fetch, handle))
                 if len(inflight) >= queue_depth:
                     yield inflight.popleft().result()

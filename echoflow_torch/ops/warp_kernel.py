@@ -25,10 +25,11 @@ tensors; for CUDA tensors it checks device, dtype, shape and contiguity and
 launches its kernel of `csrc/warp.cu`, or raises. `.launches` on each
 wrapper counts its kernel launches.
 
-K3 adds every pixel's terms into a zeroed channels-last scratch with
-16-byte atomics (a warp joins the terms its neighbouring lanes add to one
-element), then a second kernel writes d_img from it (`csrc/warp.cu`;
-`tests/test_torch_warp.py` states the same recipe in torch).
+K3 is deterministic, as echoflow's Pallas K3 is: a counting sort of each
+destination's sources (integer atomics only) and a pass that sums each
+element's terms in the plain version's order of corners and sources, so
+its bits do not depend on the order its blocks run in (`csrc/warp.cu`).
+Its scratch is int32, from the caching allocator.
 
 The coordinate gradient follows the Pallas kernel: it is zeroed where the
 raw coordinate lies outside [0, size-1], and at exactly size-1 it is the
@@ -44,7 +45,7 @@ import functools
 
 import torch
 
-# float32 unit roundoff: the tolerance of K3 (atomics) is stated in it.
+# float32 unit roundoff: the tolerance of K3 against the plain version is stated in it.
 _U32 = 2.0 ** -24
 
 
@@ -136,8 +137,7 @@ def image_grad_tolerance(g, px, py):
     """Per-element bound on |K3 - reference_warp_image_grad|: each side
     sums its k contributions to an element in some order, within
     (k-1) u sum|term| of the exact sum (u = 2^-24), so the two differ by
-    at most (k-1) 2^-23 sum|term|. Also bounds two K3 runs against each
-    other (atomics add in an order that changes from run to run)."""
+    at most (k-1) 2^-23 sum|term|. (Two K3 runs give the same bits.)"""
     n, c, h, w = g.shape
     abs_sum = reference_warp_image_grad(g.abs(), px, py)
     hits = torch.zeros(n * c * h * w, device=g.device, dtype=g.dtype)
@@ -238,7 +238,9 @@ def warp_image_grad(g, px, py):
     n, c, h, w = _check_cuda("warp_image_grad", g, (px, py))
     lib = _lib()
     d_img = torch.empty_like(g)   # the kernel writes every element
-    scratch = torch.zeros(lib.echoflow_warp_image_grad_scratch(n, c, h, w), device=g.device)
+    # The kernel zeroes what it needs of its scratch.
+    scratch = torch.empty(lib.echoflow_warp_image_grad_scratch(n, c, h, w), dtype=torch.int32,
+                          device=g.device)
     _launch(lib.echoflow_warp_image_grad, "warp_image_grad", g, px, py, d_img, scratch,
             n, c, h, w)
     warp_image_grad.launches += 1

@@ -36,7 +36,7 @@ from echoflow_torch.train.camus_losses import cross_entropy
 from echoflow_torch.train.graph import optimizer_bindings
 from echoflow_torch.utils.cleanup import cleanup_segmentation
 from echoflow_torch.utils.device import upload
-from echoflow_torch.utils.graphs import GraphedFunction, model_memory
+from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
 
 
 # --------------------------------------------------------------- data plumbing
@@ -234,10 +234,6 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _model_bindings(model) -> tuple:
-    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
-
-
 def _train_step(model: nn.Module, criterion: Callable, optimizer: MultiSteps):
     """`step(inputs, targets, update)` -> (loss, outputs): one mini-step
     (the backward, `optimizer.fold(update)`, then the model's outputs on
@@ -255,7 +251,7 @@ def _train_step(model: nn.Module, criterion: Callable, optimizer: MultiSteps):
 
         optimizer.steps[key] = GraphedFunction(
             step, memory=model_memory(model, _device_of(model)),
-            bindings=lambda update: _model_bindings(model) + optimizer.bindings(update))
+            bindings=lambda update: module_bindings(model) + optimizer.bindings(update))
     return optimizer.steps[key]
 
 
@@ -325,7 +321,7 @@ def run_validation(model: nn.Module, data_iterator, criterion: Callable = cross_
         return criterion(outputs, targets), outputs
 
     forward = GraphedFunction(forward, memory=model_memory(model, device),
-                              bindings=lambda: _model_bindings(model))
+                              bindings=lambda: module_bindings(model))
     running = 0.0
     count = 0
     dices = {}

@@ -1,7 +1,8 @@
 """CUDA graphs of functions of tensors: the warm-up, capture and replay that
-the graphed train steps (`train/graph.py`), the motion rollouts
-(`infer/propagate.py`) and the CAMUS trainer's step (`train/generic.py`)
-share, the port's counterpart of `jax.jit`.
+the graphed train steps (`train/graph.py`), the inference engine
+(`infer/pipeline.py`), the clip forward (`infer/clips.py`), the motion
+rollouts (`infer/propagate.py`) and the CAMUS trainer's step
+(`train/generic.py`) share, the port's counterpart of `jax.jit`.
 
     rollout = GraphedFunction(deform_forback)   # a function of tensors
     forwards, backwards = rollout(label_ed, label_es, motion, mode="bilinear")
@@ -18,6 +19,11 @@ shape:
   of one device's functions, share one memory pool) and replays once for
   itself;
 - every later call copies its tensors into the graph's inputs and replays.
+
+cuBLAS and cuDNN make their handles for each thread at its first call,
+which a capture refuses: a key's capture must run on a thread that has
+run the function eagerly, as its warm-up does (the engine dispatches all
+its device work on one thread of its own).
 
 A wrapper keeps the graphs of its `max_graphs` most recently used keys
 (and the warm-ups of as many keys not captured yet): the graph of the key
@@ -66,6 +72,12 @@ def _launches() -> tuple:
 
 def _constant_misses() -> int:
     return sum(cache.cache_info().misses for cache in _CONSTANT_CACHES)
+
+
+def module_bindings(model) -> tuple:
+    """The addresses of a module's parameters and buffers: the `bindings`
+    of a graph that reads the module."""
+    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
 
 
 def _signature(batch) -> tuple:
@@ -141,7 +153,10 @@ class _Graphs:
     each key (module docstring). `graphs` holds them by key, least recently
     used first; `memory` is the `_Memory` the next warm-up or capture uses.
     With `debug` set, a capture keeps its graph's nodes for
-    `CUDAGraph.debug_dump` (`cudaGraphDebugDotPrint`)."""
+    `CUDAGraph.debug_dump` (`cudaGraphDebugDotPrint`). A capture refuses
+    a call that is unsafe during it on its own thread only
+    (`capture_error_mode="thread_local"`): the engine's fetch threads wait
+    on events while its dispatch thread captures."""
 
     debug = False
     max_graphs = 8
@@ -171,7 +186,8 @@ class _Graphs:
         graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
         if self.debug:
             graph.enable_debug_mode()
-        with torch.cuda.graph(graph, pool=self.memory.pool(), stream=self.memory.stream()):
+        with torch.cuda.graph(graph, pool=self.memory.pool(), stream=self.memory.stream(),
+                              capture_error_mode="thread_local"):
             out = fn()
         return out, graph
 

@@ -12,7 +12,11 @@ warm up, then under torch.profiler, and prints one JSON line: wall time,
 device busy time and idle share, device time by layer and by kernel, and
 `syncs_per_video`: the calls that waited for the device while one more
 video was dispatched (`segment_video_async`, torch's sync debug mode "warn",
-by line; fetching the mask afterwards waits by design).
+by line; fetching the mask afterwards waits by design). The split by layer
+is the eager body's (`engine._run.__wrapped__`: a replay of the engine's
+graph fires no range); `graphed` is the same videos through the engine's
+graphs, after a warm-up and a capture: wall, device busy time and idle
+share of a profiled pass, and K1's launches by kernel name.
 
 With --train it profiles one full-width fused CLAS-FV train step instead
 (batch 4 x 3 x 32 x 112 x 112, fp32, TF32 off, after two warm-up steps),
@@ -34,9 +38,9 @@ K2-K4's launches by kernel name (a replay fires no range, so the split by
 layer is the eager step's).
 
 With --clips CHUNK it profiles `chip_smoke.py` phase 7's workload: one
-`ClipForward` call (fp32, with the motion head) on 16 full-width clips in
-chunks of CHUNK, by layer, and the bilinear rollouts on their motion with
-K2's launches by device time.
+`ClipForward` call (fp32, with the motion head, its eager forward) on 16
+full-width clips in chunks of CHUNK, by layer, and the bilinear rollouts
+on their motion with K2's launches by device time.
 
 With CHECKPOINT arguments (the port's `.pth`, e.g. `train_clasfv_torch.py`'s
 `<out>.last`) it evaluates them instead, as echoflow's bf16 training study
@@ -51,12 +55,14 @@ where the bf16 and mixed masks differ from fp32's.
 
 A layer is a `record_function` range of the engine (`echoflow_torch.<layer>`,
 see echoflow_torch/infer/pipeline.py): each device kernel or copy counts
-for the innermost range around the host call that launched it. The videos
-are dispatched ahead from this thread with `segment_video_async` (what
-`segment_videos` does from a worker thread), so every launch is recorded
-under its range. The port's own kernels are launched through ctypes, which
-the profiler does not link to a host call; their device time counts for
-the range of the wrapper that alone launches them (`OWN_KERNELS`).
+for the innermost range around the host call that launched it. The
+profiler records the host calls of the thread that runs it, so the eager
+profile stages and dispatches the videos from this thread
+(`engine._stage_and_run`, what `segment_video_async` runs on the engine's
+dispatch thread), and every launch is recorded under its range. The
+port's own kernels are launched through ctypes, which the profiler does
+not link to a host call; their device time counts for the range of the
+wrapper that alone launches them (`OWN_KERNELS`).
 """
 
 from __future__ import annotations
@@ -216,6 +222,31 @@ def profile_graphed_step(state, step_fn, batches):
             "device_idle_share": 1.0 - busy_ms / wall_ms, "warp_launches": launches}
 
 
+def profile_graphed_engine(engine, videos):
+    """The videos through the engine's graphs (after a warm-up and a
+    capture of their key) under the profiler, dispatched ahead as in the
+    eager profile: wall, device busy and idle share, and K1's launches by
+    kernel name (a replay fires no range)."""
+    for _ in range(2):
+        engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handles = [engine.segment_video_async(v, num_clips=5, step=1, fuse_method="simple")
+                   for v in videos]
+        for p, _ in handles:
+            p.numpy()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, kernels = split_device_time(prof, {})
+    busy_ms = sum(kernels.values())
+    k1 = sum(1 for evt in prof.events() if evt.device_type != torch.autograd.DeviceType.CPU
+             and "decoder_heads_kernel" in evt.name)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "k1_launches": k1,
+            "graphs": len(engine._run.graphs)}
+
+
 def profile_clips(chunk, out_path=None):
     """`chip_smoke.py` phase 7's workload under the profiler: one
     `ClipForward` call (fp32, motion head) on the 16 clips around one ED
@@ -231,6 +262,7 @@ def profile_clips(chunk, out_path=None):
     state, video, ed, starts = clip_workload()
     clips = np.stack([video[:, s:s + 32] for s in starts])
     fwd = ClipForward(state, dtype=torch.float32, forward_chunk=chunk)
+    fwd._forward = fwd._forward.__wrapped__    # the ranges fire in the eager forward only
     fwd(clips[:chunk])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -349,15 +381,20 @@ def main():
     if args.clips:
         return profile_clips(args.clips, args.out)
     engine = VideoSegmenter(smoke_weights(), dtype=getattr(torch, args.dtype))
+    graphed_run = engine._run
+    engine._run = graphed_run.__wrapped__     # the eager body: its ranges fire
     videos = [make_beating_video(num_frames=176, period=38.0 + 6 * i, seed=i + 1)
               .video.astype(np.uint8) for i in range(args.videos)]
-    engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")
+
+    def dispatch(video):   # on this thread, which the profiler records
+        return engine._stage_and_run(video, 5, 1, "simple", None)
+
+    dispatch(videos[0])[0].numpy()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        handles = [engine.segment_video_async(v, num_clips=5, step=1, fuse_method="simple")
-                   for v in videos]
+        handles = [dispatch(v) for v in videos]
         masks = [_unpackbits(p.numpy(), width)[:length] for p, (length, width) in handles]
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -365,16 +402,17 @@ def main():
 
     layers, kernels = split_device_time(prof, OWN_KERNELS)
     busy_ms = sum(kernels.values())
-    (pending, (length, width)), syncs = count_syncs(lambda: engine.segment_video_async(
-        videos[0], num_clips=5, step=1, fuse_method="simple"))
+    (pending, (length, width)), syncs = count_syncs(lambda: dispatch(videos[0]))
     assert _unpackbits(pending.numpy(), width)[:length].shape == (176, 112, 112)
+    engine._run = graphed_run
+    graph = profile_graphed_engine(engine, videos)
     print(json.dumps({
         "card": nvidia_smi_line(), "dtype": args.dtype, "videos": len(videos),
         "frames": 176 * len(videos), "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
         "layers_ms": dict(sorted(layers.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": top_kernels(kernels),
-        "syncs_per_video": sum(syncs.values()), "sync_sites": dict(syncs),
+        "syncs_per_video": sum(syncs.values()), "sync_sites": dict(syncs), "graphed": graph,
     }))
     if args.out:
         with open(args.out, "w") as f:

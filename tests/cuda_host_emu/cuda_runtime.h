@@ -10,7 +10,10 @@
 // such as the right side of &&) or after a lane of the warp has returned.
 // The rounded arithmetic intrinsics go through volatile so that g++ cannot
 // contract them: each result is the IEEE single-precision one, as on the
-// card. Atomics take a mutex.
+// card. Atomics take a mutex; the lanes of a warp reach them in whatever
+// order their threads run. Compiled with -DEMU_REVERSE_BLOCKS, a launch
+// runs its blocks, and the warps of each block, last to first: a kernel
+// whose result depends on the order its blocks run in shows it there.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -35,6 +38,10 @@ typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes, cudaStream_t = nullptr) {
+  std::memset(p, value, bytes);
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
   *value = 132;   // an H100's SMs
@@ -58,6 +65,12 @@ inline float4 atomicAdd(float4* a, float4 v) {
   std::lock_guard<std::mutex> lock(emu_atomic_mutex);
   const float4 old = *a;
   a->x += v.x; a->y += v.y; a->z += v.z; a->w += v.w;
+  return old;
+}
+inline int atomicAdd(int* a, int v) {
+  std::lock_guard<std::mutex> lock(emu_atomic_mutex);
+  const int old = *a;
+  *a += v;
   return old;
 }
 
@@ -109,6 +122,12 @@ inline T __shfl_up_sync(unsigned, T v, int d, int line = __builtin_LINE()) {
   const int src = (int)(threadIdx.x & 31) - d;
   return src >= 0 ? emu_value<T>(all[src]) : v;
 }
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int line = __builtin_LINE()) {
+  uint64_t all[32];
+  emu_collective(emu_bits(v), line, all);
+  return emu_value<T>(all[src & 31]);
+}
 inline unsigned __ballot_sync(unsigned, bool p, int line = __builtin_LINE()) {
   uint64_t all[32];
   emu_collective(p, line, all);
@@ -126,8 +145,16 @@ template <class F>
 inline void emu_launch(F kernel, unsigned grid, int block, int = 0, cudaStream_t = nullptr) {
   blockDim.x = block;
   gridDim.x = grid;
-  for (unsigned b = 0; b < grid; ++b)
-    for (int w0 = 0; w0 < block; w0 += 32) {
+#ifdef EMU_REVERSE_BLOCKS
+  constexpr bool reverse = true;
+#else
+  constexpr bool reverse = false;
+#endif
+  const int warps = (block + 31) / 32;
+  for (unsigned i = 0; i < grid; ++i)
+    for (int j = 0; j < warps; ++j) {
+      const unsigned b = reverse ? grid - 1 - i : i;
+      const int w0 = 32 * (reverse ? warps - 1 - j : j);
       EmuWarp warp;
       std::vector<std::thread> lanes;
       for (int l = 0; l < 32; ++l)

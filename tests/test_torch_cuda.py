@@ -167,9 +167,10 @@ def _warp_inputs(shape, seed=0, motion="far"):
 @pytest.mark.parametrize("shape", WARP_SHAPES)
 def test_warp_kernels_match_plain(cuda, shape, motion):
     """K2 and K4 repeat the plain versions' elementwise arithmetic in the
-    same order, so they are bitwise equal. K3 adds with fp32 atomics, in
-    an order that changes from run to run: it stays within the per-element
-    bound of `image_grad_tolerance`, of the plain version and of itself."""
+    same order, so they are bitwise equal. K3 sums each element's terms in
+    a fixed order (each corner's sources apart): it stays within the
+    per-element bound of `image_grad_tolerance` of the plain version, and
+    gives the same bits again."""
     from echoflow_torch.ops import warp_kernel as wk
 
     image, grad, px, py = _warp_inputs(shape, motion=motion)
@@ -187,7 +188,26 @@ def test_warp_kernels_match_plain(cuda, shape, motion):
     assert torch.equal(d_px, r_px) and torch.equal(d_py, r_py)
     tol = wk.image_grad_tolerance(grad, px, py)
     assert bool(((d_img - wk.reference_warp_image_grad(grad, px, py)).abs() <= tol).all())
-    assert bool(((d_img - d_img2).abs() <= tol).all())
+    assert torch.equal(d_img.view(torch.int32), d_img2.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("motion", ["far", "near"])
+@pytest.mark.parametrize("shape", [(8, 4, 112, 112), (124, 3, 112, 112)],
+                         ids=["label_warp", "ota"])
+def test_image_grad_kernel_gives_the_same_bits_every_launch(cuda, shape, motion):
+    """K3 at the fused step's label-warp shape and the OTA batch's, under
+    rough and smooth motion: 10 launches on the same inputs give the same
+    bits, within `image_grad_tolerance` of the plain version."""
+    from echoflow_torch.ops import warp_kernel as wk
+
+    _, grad, px, py = _warp_inputs(shape, motion=motion)
+    runs = [wk.warp_image_grad(grad, px, py) for _ in range(10)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r.view(torch.int32), runs[0].view(torch.int32))
+    tol = wk.image_grad_tolerance(grad, px, py)
+    assert bool(((runs[0] - wk.reference_warp_image_grad(grad, px, py)).abs() <= tol).all())
 
 
 @pytest.mark.cuda
@@ -345,7 +365,7 @@ def test_train_step_on_the_card_matches_the_cpu_port(cuda):
     1e-5 relative, all gradients within 5e-3 and each leaf's within 1e-2 in
     relative L2 (leaves that are 0 in exact arithmetic, below 1e-4 of the
     largest, stay there). fp32 rounding on both sides, cuDNN's and the
-    CPU's conv algorithms and K3's atomics differ; dropping K3 from the
+    CPU's conv algorithms and K3's order of sums differ; dropping K3 from the
     label warps moves the worst leaf by 0.61. The inputs are echo-like on
     purpose: on a uniform-noise video a one-ulp shift of a coordinate
     across an integer changes the warp's slope by O(1), and the CPU port's
@@ -455,18 +475,81 @@ def test_train_step_makes_no_host_sync(cuda, compute_dtype, remat):
 @pytest.mark.cuda
 def test_engine_dispatch_makes_no_host_sync(cuda):
     """`segment_video_async` of a video whose length the engine has seen
-    enqueues everything without waiting; the fetch waits by design."""
+    enqueues everything without waiting, through the eager body and as a
+    replay of the engine's graph (after its warm-up and capture); the
+    fetch waits by design."""
     from echoflow_torch.data.synthetic import make_beating_video
     from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
     from echoflow_torch.models.r2plus1d import create_model
 
-    engine = VideoSegmenter(create_model(seed=1).state_dict(), dtype=torch.float32,
-                            forward_chunk=8)
+    state = create_model(seed=1).state_dict()
     video = make_beating_video(num_frames=48, seed=1).video.astype(np.uint8)
-    want = engine.segment_video(video, num_clips=2, step=1)
-    pending, (length, width) = _no_sync(lambda: engine.segment_video_async(
-        video, num_clips=2, step=1))
-    np.testing.assert_array_equal(_unpackbits(pending.numpy(), width)[:length], want)
+    eager = VideoSegmenter(state, dtype=torch.float32, forward_chunk=8)
+    eager._run = eager._run.__wrapped__
+    graphed = VideoSegmenter(state, dtype=torch.float32, forward_chunk=8)
+    want = eager.segment_video(video, num_clips=2, step=1)
+    assert np.array_equal(graphed.segment_video(video, num_clips=2, step=1), want)
+    assert np.array_equal(graphed.segment_video(video, num_clips=2, step=1), want)
+    for engine in (eager, graphed):
+        pending, (length, width) = _no_sync(lambda: engine.segment_video_async(
+            video, num_clips=2, step=1))
+        np.testing.assert_array_equal(_unpackbits(pending.numpy(), width)[:length], want)
+    assert sum(e.replays for e in graphed._run.graphs.values()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, "auto"], ids=["fp32", "bf16"])
+def test_graphed_engine_is_bitwise_the_eager_engine(cuda, dtype):
+    """The engine's graphs against its eager body on full-width seeded
+    weights: 176- and 100-frame 112x112 videos through `segment_videos`
+    with 3 in flight, so the 176-frame key captures while the first
+    videos' masks are fetched on other threads; every mask bitwise the
+    eager engine's, in order; one graph a key; K1 launched once a video by
+    its counter."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.r2plus1d import create_model
+
+    state = create_model(seed=1).state_dict()
+    state["segmentation_head.weight"] = state["segmentation_head.weight"] * 50.0
+    videos = [make_beating_video(num_frames=n, period=40.0, seed=i).video.astype(np.uint8)
+              for i, n in enumerate((100, 176, 100, 176, 176, 100))]
+    eager = VideoSegmenter(state, dtype=dtype)
+    eager._run = eager._run.__wrapped__
+    want = list(eager.segment_videos(videos, num_clips=5, step=1))
+    engine = VideoSegmenter(state, dtype=dtype)
+    before = decoder_heads.launches
+    got = list(engine.segment_videos(videos, num_clips=5, step=1, queue_depth=3))
+    assert decoder_heads.launches - before == len(videos)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    assert len(engine._run.graphs) == 2
+    assert sorted(e.replays for e in engine._run.graphs.values()) == [2, 2]
+
+
+@pytest.mark.cuda
+def test_graphed_clip_forward_is_bitwise_the_eager_one(cuda):
+    """`ClipForward` through its graphs (5 clips in chunks of 2: a graph of
+    2 clips and one of 1) against its eager forward, three calls: the
+    same bits every time; K1 once a chunk by its counter."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.clips import ClipForward
+    from echoflow_torch.ops.normalize import zeroone_normalizer
+
+    state = _clip_state()
+    video = zeroone_normalizer(make_beating_video(num_frames=40, seed=3).video.copy())
+    clips = np.stack([video[:, s:s + 32] for s in range(5)])
+    eager = ClipForward(state, forward_chunk=2)
+    eager._forward = eager._forward.__wrapped__
+    want = eager(clips)
+    fwd = ClipForward(state, forward_chunk=2)
+    before = decoder_heads.launches
+    for _ in range(3):
+        for a, b in zip(fwd(clips), want):
+            assert np.array_equal(a, b)
+    assert decoder_heads.launches - before == 9
+    assert len(fwd._forward.graphs) == 2
 
 
 def _clip_state():
@@ -604,7 +687,7 @@ def test_camus_losses_on_the_card_match_the_plain_warp(cuda, monkeypatch):
     """`ota_loss` and `sgs_ots_loss` (2 x 1 x 10 x 64 x 64, 4 classes, a
     smooth motion of a few pixels) through K2-K4 against the same calls on
     the plain warp: values within 1e-5, the motion's gradient within 5e-3
-    relative L2 (K3's atomics add in a run-dependent order)."""
+    relative L2 (K3 sums in another order than the plain `index_add_`)."""
     import torch.nn.functional as F
 
     from echoflow_torch.ops import warp_kernel as wk
@@ -702,6 +785,27 @@ def _phase6_bars(c):
 
 
 @pytest.mark.cuda
+def test_eager_train_runs_repeat_bitwise(cuda):
+    """Two eager fp32 runs of 3 fused steps from the seed-0 state on the
+    same batches: the same losses, parameters and running statistics, bit
+    for bit, as echoflow's training repeats. K3 sums in a fixed order; the
+    trainer's defaults leave cuDNN its own (faster) algorithms, whose
+    weight gradients add in a run-dependent order, so the runs take
+    cuDNN's deterministic ones (`torch.backends.cudnn.deterministic`)."""
+    cfg, batches, factory = _graph_setup(3)
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_run_steps(cfg, batches, factory, graph=False) for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = before
+    (state_a, _, steps_a), (state_b, _, steps_b) = runs
+    assert steps_a == steps_b
+    for a, b in zip(_flat_state(state_a), _flat_state(state_b)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_graphed_steps_follow_the_eager_steps(cuda):
     """Four steps from one state, five times eagerly and once graphed (the
     warm-up, the capture and its replay, two replays), the LR dropping at
@@ -710,7 +814,7 @@ def test_graphed_steps_follow_the_eager_steps(cuda):
     state and batch; the LR each update applied is the schedule's; K2/K3/K4
     7/6/14 a step; after 4 steps the parameters' moves on average at most
     2x as far from the eager runs' as the eager runs are from each other
-    (K3's atomics, amplified by Adam), or 1e-6 of the move where those
+    (cuDNN's fp32 weight gradients, amplified by Adam), or 1e-6 of the move where those
     agree bitwise; the running statistics likewise, and
     `num_batches_tracked` equal. Five eager runs, because at this size the
     distance between two runs is a noisy measure of their spread. On an
