@@ -95,13 +95,13 @@ Phases (any failure raises and the script exits nonzero):
      path on phase 4's videos, host times of both;
  12. graphed steps (`train/graph.py`, what `fit` runs on the card): for each
      of fp32, fp32 with remat, bf16, bf16 with remat and the ed-or-es-only
-     recipe, 4 steps from phase 6's seed-0 state and batches, three times
+     recipe, 4 steps from phase 6's seed-0 state and batches, twice
      eagerly and once graphed (a warm-up, a capture with its replay, two
      replays), the LR dropping at update 2: the warm-up and a replay at
      phase 6's bars (bf16: 1e-2 and 3e-2) against the eager step from the
      same state and batch; after 4 steps the parameters and running
-     statistics at most 2x as far from the eager runs' (median of three)
-     as the eager runs are apart (median of their three pairs),
+     statistics at most 2x as far from the eager runs' (their median) as
+     the eager runs are apart, or 1e-6 of the moves (the runs repeat),
      `num_batches_tracked` equal, the LR of each update the schedule's;
      launches zeroed just before each step and held at the recipe's, K1's
      held at 0; K1-K4 by kernel name in a profiled replay; no wait in a
@@ -131,13 +131,23 @@ Phases (any failure raises and the script exits nonzero):
      `--acnn`: losses within 1e-3, graphs and replays, no warp launch.
      Phase 7 runs the eager rollouts (`fn.__wrapped__`).
  14. repeatable training and the last paths echoflow compiles: (a) two
-     eager fp32 runs of phase 12's recipe as the trainer runs them, under
-     the plain warp with torch's deterministic algorithms, under those
-     with the port's K3, and with only cuDNN's deterministic algorithms:
-     bitwise or their distance, the last two held bitwise; the ops torch
-     names nondeterministic in a step; two eager bf16 runs; phase 12's
-     graphed fp32 step with cuDNN's deterministic algorithms on and off;
-     K3's us a launch in an eager step; (b) the engine through its graphs (the default on one
+     eager fp32 runs of phase 12's recipe as the trainer runs them (each
+     convolution's backward on its repeatable route, `ops/conv.py`),
+     under the plain warp with torch's deterministic algorithms, under
+     those with the port's K3, and with only cuDNN's deterministic
+     algorithms: bitwise or their distance, all but the second held
+     bitwise; phase 12's eager fp32 and fp32-remat runs held bitwise,
+     its graphed runs against them; two eager runs of the one-rank NCCL
+     data-parallel step and of the CAMUS trainer (with and without
+     `--acnn`; its graphed runs of phases 10b and 13c too) held bitwise;
+     a fresh process's run of the recipe held to the same SHA-256 of its
+     moves; the ops torch names nondeterministic in a step; two eager
+     bf16 runs held bitwise; the cost line: phase 12's graphed fp32 step
+     on the parent's route (every conv the plain functional conv on
+     cuDNN's defaults), the repeatable route and the global
+     `cudnn.deterministic` switch in turns, the route's cost held below
+     the switch's, and the graphed bf16 step on both routes; K3's us a
+     launch in an eager step; (b) the engine through its graphs (the default on one
      card) against its eager body (`_run.__wrapped__`) on phase 4's three
      videos, fp32 and bf16: masks bitwise, K1's launches by counter (3)
      and by name, no wait in a replayed dispatch, frames/s of each, a
@@ -160,11 +170,13 @@ import copy
 import dataclasses
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -179,6 +191,7 @@ from echoflow_torch.infer.ef import compute_ef_using_putative_clips
 from echoflow_torch.infer.pipeline import VideoSegmenter
 from echoflow_torch.models.r2plus1d import create_model
 from echoflow_torch.ops import _build
+from echoflow_torch.ops.conv import deterministic_cudnn
 from echoflow_torch.ops import warp_kernel as wk
 from echoflow_torch.ops.decoder_heads import decoder_heads, reference_decoder_heads
 from echoflow_torch.ops.normalize import zeroone_normalizer
@@ -1033,7 +1046,7 @@ def phase_dp_train():
     full-width gradients are held at bars set from readings
     (`DP_FULL_GRAD_TOL`); phase 6's (2, 3, 8, 32, 32) step on the card,
     without and with data parallelism, at phase 6's bars. Each step is also run twice to
-    read the run-to-run spread (cuDNN's fp32 algorithms add in a run-dependent order)
+    read the run-to-run spread (0 where every sum runs in a fixed order)
     that the bars must leave room for."""
     import torch.distributed as dist
 
@@ -1258,11 +1271,13 @@ def phase_camus():
         losses_by = {}
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            _, summary, losses_by[device] = train_camus_torch.main(args + ["--device", device])
+            model, summary, losses_by[device] = train_camus_torch.main(args + ["--device", device])
             walls[device] = time.perf_counter() - t0
+            if device == "cuda":
+                card_sha = state_sha(model)
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses_by["cuda"], losses_by["cpu"]))
         key = "acnn" if acnn else "plain"
-        runs[key] = dict(losses=losses_by, rel=rel, wall_s=walls, dice=summary)
+        runs[key] = dict(losses=losses_by, rel=rel, wall_s=walls, dice=summary, sha=card_sha)
         log(f"camus (b) train_camus_torch {' '.join(args)}: losses on the card "
             f"{[round(v, 6) for v in losses_by['cuda']]}, on the CPU "
             f"{[round(v, 6) for v in losses_by['cpu']]} (rel {rel:.2e}, limit "
@@ -1562,15 +1577,16 @@ GRAPH_VARIANTS = (("fp32", torch.float32, False, "clasfv"),
                   ("ed_es_only", torch.float32, False, "ed_es_only"))
 GRAPH_STEPS = 4        # the warm-up, the capture and its replay, two replays
 GRAPH_LR_DROP = 2      # the LR drops at update 2: between the second and third replays
-EAGER_RUNS = 3         # eager runs of each variant: their median spread is the bar's scale
+EAGER_RUNS = 2         # eager runs of each variant: their spread is the bar's scale
 SPREAD_RATIO = 2.0     # graphed vs eager at most this x the eager runs apart (medians)
-MOVE_FLOOR = 1e-6      # ... or this share of the moves: eager runs may agree bitwise
-# Why medians of three: two eager bf16 runs from one state now and then
-# agree nearly bitwise, and are then about ten times closer after 4 steps
-# than two runs whose bf16 roundings differ somewhere (Adam amplifies those).
-# One such pair made the bar 2 x 8.0e-3 against a graphed run 9.1e-2 away,
-# as far as eager runs usually are from each other (9.0e-2, H100). The
-# median of three pairs is that small only when all three runs agree.
+MOVE_FLOOR = 1e-6      # ... or this share of the moves: eager runs agree bitwise
+# Two eager runs: every variant's eager runs repeat bit for bit (phase 14a
+# holds it), so their spread is 0 and the bar is MOVE_FLOOR. While runs
+# did not repeat, three were taken: two eager bf16 runs now and then
+# agreed nearly bitwise, about ten times closer after 4 steps than two
+# runs whose roundings differed (on an H100, a bar of 2 x 8.0e-3 against a
+# graphed run 9.1e-2 away), and the median of three pairs was that small
+# only when all three runs agreed.
 EVAL_TOL = 1e-5        # the graphed eval step's metrics vs the eager one's (relative)
 TIMED_REPLAYS = 5
 # bf16's eager step is not repeatable to phase 6's bars. Two eager steps
@@ -1697,6 +1713,23 @@ def _move_dist(a, b):
     return float((a - b).norm() / b.norm())
 
 
+def moves_sha(run):
+    """SHA-256 of a run's parameter and running-statistics moves (their
+    float64 bytes): equal hashes, the same bits."""
+    h = hashlib.sha256()
+    for k in ("param_move", "stats_move"):
+        h.update(run[k].numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_sha(model):
+    """SHA-256 of a module's parameters and buffers, in state-dict order."""
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _sci(values):
     return "[" + ", ".join(f"{v:.2e}" for v in values) + "]"
 
@@ -1779,8 +1812,9 @@ def phase_graphs():
     dropping at update GRAPH_LR_DROP. Held against the eager step from
     the same state and batch: the graphed step 1 (the warm-up) against the
     first eager run's, and step 3 (a replay) against an eager twin of the
-    graphed state (two eager fp32 runs are far apart by step 3: cuDNN's
-    weight gradients, amplified by Adam), at phase 6's bars in fp32 and BF16_GRAD_TOL and
+    graphed state (an eager run's state differs from the graphed run's
+    wherever the two steps round apart, amplified by Adam), at phase 6's
+    bars in fp32 and BF16_GRAD_TOL and
     BF16_LEAF_TOL in bf16 (`step_tolerances`; how far two eager steps
     from one state are apart is printed beside them: the first two eager
     runs at step 1, a second twin at step 3). After the run the median
@@ -1872,8 +1906,8 @@ def phase_graphs():
         res = out[name] = dict(
             dtype=dtype, k1_launches=k1_launches,
             warm_up=warm_up, replay=replay, eager_apart=apart, twins_apart=twins_apart,
-            move_dist=dist,
-            move_spread=spread, runs=runs, want_lr=want_lr,
+            move_dist=dist, move_dists=dists,
+            move_spread=spread, move_spreads=spreads, runs=runs, want_lr=want_lr,
             eager_median_ms=statistics.median(eager_ms), eager_ms=eager_ms,
             graphed_median_ms=statistics.median(timed), timed_ms=timed,
             capture_ms=graphed_run["steps"][1]["ms"], replay_wall_ms=wall,
@@ -2387,8 +2421,9 @@ def phase_graphed_camus():
         generic.GraphedFunction = lambda fn, **kw: fn
         try:
             t0 = time.perf_counter()
-            _, _, eager_losses = train_camus_torch.main(argv)
+            model, _, eager_losses = train_camus_torch.main(argv)
             eager_s = time.perf_counter() - t0
+            eager_sha = state_sha(model)
         finally:
             generic.GraphedFunction = real
         made = []
@@ -2402,9 +2437,10 @@ def phase_graphed_camus():
         generic.GraphedFunction = recording
         try:
             t0 = time.perf_counter()
-            _, _, losses = train_camus_torch.main(argv)
+            model, _, losses = train_camus_torch.main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+            sha = state_sha(model)
         finally:
             generic.GraphedFunction = real
         counts = (*_launch_counts(), decoder_heads.launches)
@@ -2412,7 +2448,8 @@ def phase_graphed_camus():
         graphs = [(len(g.graphs), sum(e.replays for e in g.graphs.values())) for g in made]
         key = "acnn" if acnn else "plain"
         out[key] = dict(losses=losses, eager_losses=eager_losses, rel=rel, graphs=graphs,
-                        launches=counts, seconds=seconds, eager_seconds=eager_s)
+                        launches=counts, seconds=seconds, eager_seconds=eager_s, sha=sha,
+                        eager_sha=eager_sha)
         log(f"camus graphs ({key}): losses graphed {[round(x, 5) for x in losses]}, eager "
             f"{[round(x, 5) for x in eager_losses]}, rel {rel:.2e} (limit "
             f"{CAMUS_TRAIN_TOL:.0e}); wrappers made (graphs, replays) {graphs}; launches "
@@ -2426,12 +2463,18 @@ def phase_graphed_camus():
     return out
 
 
-# Phase 14: repeatable training (the deterministic K3), and the last two
-# paths echoflow compiles, the inference engine and `ClipForward`, as CUDA
-# graphs.
+# Phase 14: repeatable training, and the last two paths echoflow compiles,
+# the inference engine and `ClipForward`, as CUDA graphs.
 REPEAT_RUNS = 2        # eager runs of phase 12's recipe compared in each setting
 STREAM_VIDEOS = 12     # 14b's stream of mixed lengths
 STREAM_LENGTHS = (100, 300)
+CHILD_TIMEOUT_S = 600  # the fresh process of phase 14a
+# The cost line: phase 12's graphed step on the parent's route (every conv
+# the plain functional conv on cuDNN's defaults), on `ops/conv.py`'s
+# repeatable route, and on the parent's route with the global
+# `torch.backends.cudnn.deterministic`, in turns.
+COST_ORDER = {"fp32": ("parent", "route", "global", "route", "parent"),
+              "bf16": ("parent", "route", "route", "parent")}
 
 
 @contextlib.contextmanager
@@ -2448,14 +2491,29 @@ def torch_deterministic():
 
 
 @contextlib.contextmanager
-def cudnn_deterministic(on):
-    """torch.backends.cudnn.deterministic set to `on` inside the block."""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = on
+def plain_convs():
+    """Inside the block every convolution of the port is the plain
+    functional conv, whose backward takes cuDNN's default engines: the
+    route before `ops/conv.py` (phase 14a's cost line)."""
+    from echoflow_torch.ops import conv as conv_ops
+
+    routed = conv_ops.repeatable
+    conv_ops.repeatable = lambda x, weight: False
     try:
         yield
     finally:
-        torch.backends.cudnn.deterministic = before
+        conv_ops.repeatable = routed
+
+
+def cost_setting(name):
+    """The context of one entry of COST_ORDER."""
+    if name == "route":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(plain_convs())
+    if name == "global":
+        stack.enter_context(deterministic_cudnn())
+    return stack
 
 
 def repeat_settings():
@@ -2469,7 +2527,14 @@ def repeat_settings():
         stack.enter_context(torch_deterministic())
         return stack
     return {"a": contextlib.nullcontext, "b": plain_deterministic, "c": torch_deterministic,
-            "d": lambda: cudnn_deterministic(True)}
+            "d": deterministic_cudnn}
+
+
+def repeat_batches(cfg):
+    """Phase 12's batches of the CLAS-FV recipe, on the card."""
+    host = synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0],
+                             GRAPH_STEPS + 1, seed=0)
+    return list(prefetch_to_device(iter(list(host)), "cuda"))
 
 
 def repeat_pair(cfg, batches, setting=contextlib.nullcontext, runs=REPEAT_RUNS):
@@ -2477,7 +2542,7 @@ def repeat_pair(cfg, batches, setting=contextlib.nullcontext, runs=REPEAT_RUNS):
     steps from the seed-0 state, bf16 damped) under `setting`: whether the
     parameters and running statistics after the run are bitwise equal in
     all of them, the largest relative L2 distance of the moves from the
-    first run's, and of the step-3 gradients."""
+    first run's, and of the step-3 gradients; the first run's `moves_sha`."""
     factory = lambda: make_train_step(fused_ota=True)   # noqa: E731
     t0 = time.perf_counter()
     out = []
@@ -2495,8 +2560,98 @@ def repeat_pair(cfg, batches, setting=contextlib.nullcontext, runs=REPEAT_RUNS):
                step3_grad_rel=max(_compare_steps(
                    r["steps"][2]["loss"], r["steps"][2]["grads"], first["steps"][2]["loss"],
                    first["steps"][2]["grads"])["grad_rel"] for r in out[1:]),
-               seconds=time.perf_counter() - t0)
+               sha=moves_sha(first), seconds=time.perf_counter() - t0)
     return res
+
+
+def repeat_child():
+    """Setting (a) of phase 14a in this process: one eager fp32 run of
+    phase 12's recipe; prints its `moves_sha` as the last line. Phase 14a
+    runs it in a fresh process (`start_repeat_child`)."""
+    cfg = TrainConfig(lr_drop_step=GRAPH_LR_DROP)
+    _, _, run = _trajectory(cfg, lambda: make_train_step(fused_ota=True), repeat_batches(cfg),
+                            graph=False)
+    print(moves_sha(run), flush=True)
+
+
+def start_repeat_child():
+    """`repeat_child` in a fresh Python process (the kernels are built)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.repeat_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def child_sha(proc):
+    """The hash the fresh process printed; it is stopped if it overruns."""
+    try:
+        out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the fresh process ran over {CHILD_TIMEOUT_S} s")
+    if proc.returncode != 0 or not out.strip():
+        raise AssertionError(f"the fresh process failed ({proc.returncode}): {err[-3000:]}")
+    return out.strip().splitlines()[-1]
+
+
+def dp_repeat_pair(cfg, batches):
+    """REPEAT_RUNS eager runs of phase 12's recipe on a `data_parallel`
+    state (phase 13a's: a one-rank NCCL group, global BatchNorm, the flat
+    gradient all-reduce): whether their moves are bitwise equal, and the
+    largest relative L2 distance of the parameter moves."""
+    from echoflow_torch.parallel.mesh import init_distributed
+    from echoflow_torch.train.loop import data_parallel
+    import torch.distributed as dist
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("file://" + os.path.join(tmp, "store"), world_size=1, rank=0)
+        try:
+            for _ in range(REPEAT_RUNS):
+                state = data_parallel(create_train_state(0, cfg, device="cuda"))
+                p0 = _flat(state.model.parameters()).cpu()
+                s0 = _flat(_running_stats(state.model)).cpu()
+                step = make_train_step(fused_ota=True)
+                for batch in batches[:GRAPH_STEPS]:
+                    state, _ = step(state, batch)
+                runs.append(dict(param_move=_flat(state.model.parameters()).cpu() - p0,
+                                 stats_move=_flat(_running_stats(state.model)).cpu() - s0))
+                del state, step
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    first = runs[0]
+    return dict(bitwise=all(torch.equal(r[k], first[k]) for r in runs[1:]
+                            for k in ("param_move", "stats_move")),
+                param_dist=max(_move_dist(r["param_move"], first["param_move"])
+                               for r in runs[1:]))
+
+
+def camus_repeat(camus, camus_graphs):
+    """One more eager run of the CAMUS trainer (phase 13c's: `--synthetic
+    --epochs 2`, the graph wrappers swapped for the functions they wrap),
+    with and without `--acnn`, against phase 13c's eager run: the same
+    losses and the same model bits (`state_sha`); and phase 10b's graphed
+    run on the card against 13c's graphed run."""
+    import train_camus_torch
+    from echoflow_torch.train import generic
+
+    out = {}
+    real = generic.GraphedFunction
+    for key, extra in (("plain", []), ("acnn", ["--acnn"])):
+        generic.GraphedFunction = lambda fn, **kw: fn
+        try:
+            model, _, losses = train_camus_torch.main(
+                ["--synthetic", "--epochs", "2", "--device", "cuda"] + extra)
+        finally:
+            generic.GraphedFunction = real
+        earlier = camus_graphs[key]
+        out[key] = dict(eager=state_sha(model) == earlier["eager_sha"]
+                        and losses == earlier["eager_losses"],
+                        graphed=camus["train"][key]["sha"] == earlier["sha"]
+                        and camus["train"][key]["losses"]["cuda"] == earlier["losses"])
+    return out
 
 
 def nondeterministic_ops(cfg, batches):
@@ -2515,13 +2670,15 @@ def nondeterministic_ops(cfg, batches):
                                     if "determinis" in str(w.message)))
 
 
-def graphed_step_ms(cfg, batches, cudnn_on):
+def graphed_step_ms(cfg, batches, setting):
     """The median of TIMED_REPLAYS unprofiled replays of phase 12's graphed
-    fp32 step with cuDNN's deterministic algorithms on or off."""
+    step (`cfg`'s dtype) in the COST_ORDER setting `setting`."""
     from echoflow_torch.train.graph import graphed
 
-    with cudnn_deterministic(cudnn_on):
+    with cost_setting(setting):
         state = create_train_state(0, cfg, device="cuda")
+        if cfg.compute_dtype == torch.bfloat16:
+            state.model.load_state_dict(damped_residuals(state.model.state_dict()))
         step = graphed(make_train_step(fused_ota=True), state)
         for batch in batches[:2]:
             state, _ = step(state, batch)
@@ -2536,34 +2693,66 @@ def graphed_step_ms(cfg, batches, cudnn_on):
     return statistics.median(times)
 
 
-# cuDNN's deterministic algorithms would make the default fp32 training
-# repeat bitwise (setting (d)), but they slow phase 12's graphed fp32 step
-# by more than this share, so the trainer leaves cuDNN's defaults.
-CUDNN_DETERMINISTIC_MAX_COST = 0.05
+def cost_line(cfg, batches):
+    """COST_ORDER's graphed steps of `cfg`'s dtype: ms by setting, and the
+    cost of the route and of the global switch against the parent's route."""
+    order = COST_ORDER["bf16" if cfg.compute_dtype == torch.bfloat16 else "fp32"]
+    ms = collections.defaultdict(list)
+    for name in order:
+        ms[name].append(graphed_step_ms(cfg, batches, name))
+    parent = statistics.mean(ms["parent"])
+    return dict(ms=dict(ms), order=order,
+                **{f"{k}_cost": statistics.mean(ms[k]) / parent - 1.0
+                   for k in ("route", "global") if k in ms})
 
 
-def phase_repeatable_training():
-    """Phase 14a: why two training runs from one state drift apart. Two
-    eager fp32 runs of phase 12's recipe in each of the settings (a)-(d)
-    (`repeat_settings`), their distances,
-    (c) and (d) held bitwise equal (the port's K3 sums in a fixed order);
-    the ops torch names nondeterministic in one step; two eager bf16 runs
-    with the defaults; phase 12's graphed fp32 step with cuDNN's
-    deterministic algorithms off and on (off, on, on, off), which decides
-    the defaults (CUDNN_DETERMINISTIC_MAX_COST); K3's device time a launch
-    in an eager fp32 step against phase 5's bound."""
+def phase_repeatable_training(graphs, camus, camus_graphs):
+    """Phase 14a: fp32 training repeats bit for bit with the trainer's
+    defaults (`ops/conv.py`'s routes). A fresh process runs setting (a)
+    meanwhile. Two eager fp32 runs of phase 12's recipe in each of the
+    settings (a)-(d) (`repeat_settings`): (a) as the trainer runs, held
+    bitwise, (b) the plain warp under torch's deterministic algorithms,
+    (c) and (d) held bitwise as before; phase 12's eager runs and graphed
+    run of fp32 and of fp32 with remat: the eager runs held
+    bitwise, graphed against eager by their distance; two eager runs of
+    the one-rank NCCL data-parallel step (`dp_repeat_pair`) and of the
+    CAMUS trainer (`camus_repeat`, graphed against graphed too), held
+    bitwise; the fresh process's hash held equal to (a)'s; the ops torch
+    names nondeterministic in one step; two eager bf16 runs, held bitwise;
+    the cost line (`cost_line`) of phase 12's graphed fp32 step, the
+    route's cost held below the global switch's, and of the bf16 step;
+    K3's device time a launch in an eager fp32 step."""
+    child = start_repeat_child()
     base = TrainConfig(lr_drop_step=GRAPH_LR_DROP)
-    t = base.clip_length
-    host = list(synthetic_batches(base.batch_size, t, base.image_size[0], GRAPH_STEPS + 1,
-                                  seed=0))
-    batches = list(prefetch_to_device(iter(host), "cuda"))
+    batches = repeat_batches(base)
     out = {"settings": {}}
-    for name, setting in repeat_settings().items():
-        r = out["settings"][name] = repeat_pair(base, batches, setting)
-        log(f"repeatable training ({name}): two eager fp32 runs of phase 12's recipe, bitwise "
-            f"{r['bitwise']}; parameter moves {r['param_dist']:.3e} apart, running statistics "
-            f"{r['stats_dist']:.3e}, step-3 gradients {r['step3_grad_rel']:.3e}; "
-            f"{r['seconds']:.1f} s")
+    try:
+        for name, setting in repeat_settings().items():
+            r = out["settings"][name] = repeat_pair(base, batches, setting)
+            log(f"repeatable training ({name}): two eager fp32 runs of phase 12's recipe, "
+                f"bitwise {r['bitwise']}; parameter moves {r['param_dist']:.3e} apart, running "
+                f"statistics {r['stats_dist']:.3e}, step-3 gradients "
+                f"{r['step3_grad_rel']:.3e}; {r['seconds']:.1f} s")
+        for name in ("fp32", "fp32_remat"):
+            g = graphs[name]
+            out[name] = dict(eager_bitwise=max(max(v) for v in g["move_spreads"].values()) == 0,
+                             graphed_dist={k: max(v) for k, v in g["move_dists"].items()})
+            log(f"  phase 12 {name}: {EAGER_RUNS} eager runs bitwise "
+                f"{out[name]['eager_bitwise']}; the graphed run from them (largest, parameter "
+                f"moves / running statistics) {_sci(out[name]['graphed_dist'].values())}")
+        r = out["dp"] = dp_repeat_pair(base, batches)
+        log(f"  data-parallel (one-rank NCCL): two eager fp32 runs bitwise {r['bitwise']}, "
+            f"parameter moves {r['param_dist']:.3e} apart")
+        r = out["camus"] = camus_repeat(camus, camus_graphs)
+        log(f"  CAMUS trainer (--synthetic --epochs 2): the same losses and model bits, eager "
+            f"run against eager run / phase 10b's graphed run against 13c's: "
+            f"{ {k: (v['eager'], v['graphed']) for k, v in r.items()} }")
+    finally:
+        sha = child_sha(child)
+    out["child_sha"] = sha
+    log(f"  a fresh process, setting (a)'s run: SHA-256 of its moves {sha[:16]}..., this "
+        f"process's {out['settings']['a']['sha'][:16]}..., equal "
+        f"{sha == out['settings']['a']['sha']}")
     out["nondeterministic_ops"] = nondeterministic_ops(base, batches)
     log(f"  ops torch names nondeterministic in one fp32 step (warn_only): "
         f"{out['nondeterministic_ops'] or 'none'}")
@@ -2572,14 +2761,13 @@ def phase_repeatable_training():
     log(f"  defaults, bf16 (damped): bitwise {r['bitwise']}; parameter moves "
         f"{r['param_dist']:.3e} apart, running statistics {r['stats_dist']:.3e}, step-3 "
         f"gradients {r['step3_grad_rel']:.3e}")
-    cost = [graphed_step_ms(base, batches, on) for on in (False, True, True, False)]
-    out["graphed_ms_cudnn_deterministic"] = {"off": [cost[0], cost[3]], "on": [cost[1], cost[2]]}
-    share = out["cudnn_deterministic_cost"] = (cost[1] + cost[2]) / (cost[0] + cost[3]) - 1.0
-    log(f"  phase 12's graphed fp32 step, cuDNN deterministic off / on / on / off: "
-        f"{_sci(cost)} ms (host clock, median of {TIMED_REPLAYS} replays each): +{share:.1%}; "
-        f"the defaults {'keep' if share > CUDNN_DETERMINISTIC_MAX_COST else 'could take'} "
-        f"cuDNN's own algorithms (limit +{CUDNN_DETERMINISTIC_MAX_COST:.0%}), so two default fp32 "
-        f"runs are {out['settings']['a']['param_dist']:.3e} apart after {GRAPH_STEPS} steps")
+    for cfg in (base, bf16):
+        c = out[f"cost_{'bf16' if cfg is bf16 else 'fp32'}"] = cost_line(cfg, batches)
+        log(f"  phase 12's graphed {'bf16 (damped)' if cfg is bf16 else 'fp32'} step, "
+            f"{' / '.join(c['order'])} (host clock, median of {TIMED_REPLAYS} replays each): "
+            + "; ".join(f"{k} {_sci(v)} ms" for k, v in c["ms"].items())
+            + f"; the route {c['route_cost']:+.2%} against the parent's"
+            + (f", the global switch {c['global_cost']:+.2%}" if "global_cost" in c else ""))
     state = create_train_state(0, base, device="cuda")
     step = make_train_step(fused_ota=True)
     state, _ = step(state, batches[0])
@@ -2591,9 +2779,17 @@ def phase_repeatable_training():
     out["k3_us_in_step"] = k3_ms * 1e3 / launches
     log(f"  K3 in an eager fp32 step: {out['k3_us_in_step']:.2f} us a launch ({launches} a step, "
         f"its four kernels by name; the float4-atomic K3 read 6.2 us, bound 1.20 us)")
-    bad = [k for k in ("c", "d") if not out["settings"][k]["bitwise"]]
+    bad = [f"setting ({k})" for k in ("a", "c", "d") if not out["settings"][k]["bitwise"]]
+    bad += [f"phase 12 {k} eager runs" for k in ("fp32", "fp32_remat")
+            if not out[k]["eager_bitwise"]]
+    bad += ["data-parallel"] * (not out["dp"]["bitwise"]) + ["bf16"] * (not out["bf16"]["bitwise"])
+    bad += [f"CAMUS {k} {m}" for k, v in out["camus"].items() for m, ok in v.items() if not ok]
+    if sha != out["settings"]["a"]["sha"]:
+        bad.append("the fresh process's run")
+    if not out["cost_fp32"]["route_cost"] < out["cost_fp32"]["global_cost"]:
+        bad.append("the route costs the graphed fp32 step no less than the global switch")
     if bad:
-        raise AssertionError(f"two eager runs with deterministic cuDNN differ: settings {bad}")
+        raise AssertionError(f"repeatable training: {bad}")
     return out
 
 
@@ -2812,7 +3008,7 @@ def main():
     camus_graphs = timed("13c", phase_graphed_camus)
     gc.collect()
     torch.cuda.empty_cache()
-    repeat = timed("14a", phase_repeatable_training)
+    repeat = timed("14a", phase_repeatable_training, graphs, camus, camus_graphs)
     engine_graphs = timed("14b", phase_engine_graphs, main_run)
     clip_graphs = timed("14c", phase_clip_graphs)
     log(f"seconds by phase: {seconds}")

@@ -6,13 +6,16 @@ even size pads 0 before and 1 after in flax, and flax's `ConvTranspose`
 (transpose_kernel=False) is torch's `conv_transpose2d` with the kernel
 flipped, cropped to in * stride. Both modules compute the padding from the
 input, as `lax.padtype_to_pads` and lax's transposed-conv padding do.
-`models/convert.load_flax_params` fills them from flax variables.
+`models/convert.load_flax_params` fills them from flax variables. Their
+backward repeats bit for bit on the card (`ops/conv.convolution`).
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
+
+from echoflow_torch.ops import conv as conv_ops
 
 
 def _same_pads(size: int, k: int, s: int):
@@ -32,7 +35,8 @@ class SameConv2d(nn.Conv2d):
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         top, bottom = _same_pads(x.shape[-2], kh, sh)
         left, right = _same_pads(x.shape[-1], kw, sw)
-        return super().forward(F.pad(x, (left, right, top, bottom)))
+        return conv_ops.convolution(F.pad(x, (left, right, top, bottom)), self.weight,
+                                    self.bias, self.stride)
 
 
 class SameConvTranspose2d(nn.ConvTranspose2d):
@@ -47,7 +51,8 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(cin, cout, kernel_size, stride)
 
     def forward(self, x):
-        y = super().forward(x)   # padding 0: the full (in - 1) * s + k
+        # padding 0: the full (in - 1) * s + k
+        y = conv_ops.convolution(x, self.weight, self.bias, self.stride, transposed=True)
         crops = []
         for size, k, s in zip(x.shape[-2:], self.kernel_size, self.stride):
             pad_len = k + s - 2

@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from echoflow_torch.models.fast_forward import merged_projections
+from echoflow_torch.ops import conv as conv_ops
 from echoflow_torch.ops.resize import trilinear_resize
 
 BN_EPS = 1e-5
@@ -196,11 +197,12 @@ def frozen_running_stats(model: nn.Module):
 class Conv3d(nn.Conv3d):
     """`nn.Conv3d` that computes in its input's dtype: the weight and bias
     are cast to it (flax's `promote_dtype` in `nn.Conv`), so fp32
-    parameters run a bf16 forward and get fp32 gradients."""
+    parameters run a bf16 forward and get fp32 gradients. Its backward
+    repeats bit for bit on the card (`ops/conv.convolution`)."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return conv_ops.convolution(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
 
 
 def _bn(ch: int, folded: bool) -> nn.Module:

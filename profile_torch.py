@@ -4,6 +4,7 @@
     python3 profile_torch.py [--videos 3] [--dtype float32|bfloat16] [--out PATH]
     python3 profile_torch.py --train [--compute-dtype fp32|bf16] [--remat] [--out PATH]
     python3 profile_torch.py --clips 8 [--out PATH]
+    python3 profile_torch.py --convs [--out PATH]
     python3 profile_torch.py CHECKPOINT [CHECKPOINT ...] [--out PATH]
 
 Runs the engine of chip_smoke.py (full-width R(2+1)D-18, seeded weights,
@@ -41,6 +42,25 @@ With --clips CHUNK it profiles `chip_smoke.py` phase 7's workload: one
 `ClipForward` call (fp32, with the motion head, its eager forward) on 16
 full-width clips in chunks of CHUNK, by layer, and the bilinear rollouts
 on their motion with K2's launches by device time.
+
+With --convs it times the backward of every distinct convolution of the
+fp32 train steps, one by one at the shape the step runs it: the
+convolutions of one full-width fused CLAS-FV step (batch 4 x 3 x 32 x
+112 x 112) and of the CAMUS trainer (`train_camus_torch.main --synthetic
+--epochs 1 --acnn`), each recorded where `ops/conv.convolution` takes its
+repeatable backward. A geometry is (input shape, weight shape, stride,
+padding, transposed). For each, the input gradient (where the step wants
+it), the weight gradient and the forward apart, on seeded inputs: whether
+cuDNN's default engine gives the same bits in three calls, its time (CUDA
+events, median of 10), the same with cuDNN's deterministic engines
+(`ops/conv.deterministic_cudnn`), and each candidate route of `ops/conv.py`
+("subpixel" for an input gradient, "gemm" for a weight gradient: time,
+same bits, relative L2 from the deterministic engine's result), beside
+the routes `ops/conv.ROUTES` takes for the geometry's class. `sums_ms`
+adds each column over a CLAS-FV step's convolutions, each geometry times
+its calls in the step; `*.taken` is the routes that `ROUTES` takes.
+`by_class_ms` adds them by model and geometry class, with the calls whose
+default engine gave other bits (`calls_apart`).
 
 With CHECKPOINT arguments (the port's `.pth`, e.g. `train_clasfv_torch.py`'s
 `<out>.last`) it evaluates them instead, as echoflow's bf16 training study
@@ -354,6 +374,158 @@ def evaluate_checkpoints(paths, out_path=None):
     return result
 
 
+CONV_REPS = 10       # timed calls of each backward (median)
+CONV_REPEATS = 3     # calls whose bits are compared
+
+
+def conv_geometries():
+    """The convolutions that take `ops/conv.convolution`'s repeatable
+    backward in one fp32 CLAS-FV train step at full width and in the CAMUS
+    trainer with `--acnn`, recorded as they run: {key: row}, key (model,
+    input shape, weight shape, stride, padding, transposed), the row with
+    the calls seen and whether the input gradient is wanted."""
+    import train_camus_torch
+    from echoflow_torch.ops import conv as conv_ops
+    from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_train_step,
+                                           prefetch_to_device)
+    from train_clasfv_torch import synthetic_batches
+
+    seen, model = {}, ["clasfv"]
+    plain = conv_ops.convolution
+
+    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False):
+        if conv_ops.repeatable(x, weight):
+            nd = x.dim() - 2
+            key = (model[0], tuple(x.shape), tuple(weight.shape),
+                   (stride,) * nd if isinstance(stride, int) else tuple(stride),
+                   (padding,) * nd if isinstance(padding, int) else tuple(padding), transposed)
+            row = seen.setdefault(key, dict(calls=0, wants_input_grad=False,
+                                             bias=bias is not None))
+            row["calls"] += 1
+            row["wants_input_grad"] |= x.requires_grad
+        return plain(x, weight, bias, stride, padding, transposed)
+
+    conv_ops.convolution = recording
+    try:
+        cfg = TrainConfig()
+        state = create_train_state(0, cfg, device="cuda")
+        batch = next(iter(prefetch_to_device(
+            synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 1, seed=0),
+            "cuda")))
+        make_train_step(fused_ota=True)(state, batch)
+        torch.cuda.synchronize()
+        del state
+        model[0] = "camus"
+        train_camus_torch.main(["--synthetic", "--epochs", "1", "--acnn", "--device", "cuda"])
+    finally:
+        conv_ops.convolution = plain
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _event_ms(fn, reps=CONV_REPS):
+    """Median milliseconds of `fn` over `reps` calls after one warm-up,
+    each between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _measure(fn, reference=None):
+    outs = [fn() for _ in range(CONV_REPEATS)]
+    row = dict(ms=_event_ms(fn), same_bits=all(torch.equal(o, outs[0]) for o in outs[1:]))
+    if reference is not None:
+        row["rel_l2"] = float((outs[0].double() - reference.double()).norm()
+                              / reference.double().norm())
+    return row, outs[0]
+
+
+def profile_convs(out_path=None):
+    """`--convs`: see the module docstring."""
+    from echoflow_torch.ops import conv as C
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (model, xs, ws, stride, padding, transposed), seen in conv_geometries().items():
+        nd = len(stride)
+        x = torch.randn(xs, device="cuda", generator=g)
+        fan_in = ws[0 if transposed else 1] * int(np.prod(ws[2:]))
+        w = torch.randn(ws, device="cuda", generator=g) * (2.0 / fan_in) ** 0.5
+        fwd = (C._CONV_T if transposed else C._CONV)[nd]
+        dy = torch.randn_like(fwd(x, w, stride=stride, padding=padding))
+        flop = 2 * (x if transposed else dy).numel() // (x if transposed else dy).shape[1] \
+            * ws[0] * ws[1] * int(np.prod(ws[2:]))
+        row = dict(model=model, input=list(xs), weight=list(ws), stride=list(stride),
+                   padding=list(padding), transposed=transposed,
+                   geometry_class=C.geometry_class(ws, stride, transposed), gflop=flop / 1e9,
+                   **seen)
+
+        def grads(mask, det):
+            i = mask.index(True)
+            return lambda: C.cudnn_grads(x, w, dy, stride, padding, transposed, mask, det)[i]
+
+        # The forward's bits too: a transposed conv's forward is an
+        # input-gradient engine (`ops/conv.conv_forward`).
+        parts = {"forward": dict(default=_measure(lambda: fwd(x, w, stride=stride,
+                                                              padding=padding))[0])}
+        if transposed:
+            parts["forward"]["cudnn_deterministic"] = _measure(
+                lambda: C.conv_forward(x, w, None, stride, padding, True))[0]
+        if seen["wants_input_grad"]:
+            mask = (True, False, False)
+            det, ref = _measure(grads(mask, True))
+            routes = {} if transposed else {"subpixel": lambda: C.input_grad_subpixel(
+                dy, w, stride, padding, xs[2:])}
+            parts["input_grad"] = dict(default=_measure(grads(mask, False), ref)[0],
+                                       cudnn_deterministic=det,
+                                       **{k: _measure(f, ref)[0] for k, f in routes.items()})
+        mask = (False, True, False)
+        det, ref = _measure(grads(mask, True))
+        gemm = _measure(lambda: C._weight_grad("gemm", x, w, dy, stride, padding, transposed),
+                        ref)[0]
+        parts["weight_grad"] = dict(default=_measure(grads(mask, False), ref)[0],
+                                    cudnn_deterministic=det, gemm=gemm)
+        routes = C.ROUTES.get(row["geometry_class"], C.DEFAULT_ROUTE)
+        row["routes"] = dict(zip(("input_grad", "weight_grad"), routes))
+        row.update(parts)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, w, dy, ref
+        torch.cuda.empty_cache()
+    sums, by_class = {}, {}
+    for row in rows:
+        cls = by_class.setdefault(f"{row['model']} {row['geometry_class']}", {"calls": 0})
+        cls["calls"] += row["calls"]
+        for part in ("input_grad", "weight_grad"):
+            if part not in row:
+                continue
+            # The route ROUTES takes ("cudnn" is the default engine).
+            taken = {"cudnn": "default"}.get(row["routes"][part], row["routes"][part])
+            cells = cls.setdefault(part, {"route": row["routes"][part], "calls_apart": 0})
+            cells["calls_apart"] += row["calls"] * (not row[part]["default"]["same_bits"])
+            for route, r in list(row[part].items()) + [("taken", row[part][taken])]:
+                cells[route] = cells.get(route, 0.0) + row["calls"] * r["ms"]
+                if row["model"] == "clasfv":
+                    key = f"{part}.{route}"
+                    sums[key] = sums.get(key, 0.0) + row["calls"] * r["ms"]
+    result = {"card": nvidia_smi_line(), "mode": "convs", "geometries": len(rows),
+              "clasfv_calls": sum(r["calls"] for r in rows if r["model"] == "clasfv"),
+              "sums_ms": sums, "by_class_ms": by_class, "rows": rows}
+    print(json.dumps({k: v for k, v in result.items() if k != "rows"}))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(result, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkpoints", nargs="*",
@@ -369,11 +541,15 @@ def main():
     ap.add_argument("--clips", type=int, default=None, metavar="CHUNK",
                     help="profile chip_smoke.py phase 7's ClipForward (clips a chunk) "
                          "and rollouts instead")
+    ap.add_argument("--convs", action="store_true",
+                    help="time the fp32 train steps' convolution backwards one by one instead")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs an NVIDIA GPU")
     _build.build_all()
+    if args.convs:
+        return profile_convs(args.out)
     if args.checkpoints:
         return evaluate_checkpoints(args.checkpoints, args.out)
     if args.train:

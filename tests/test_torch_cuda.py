@@ -787,22 +787,115 @@ def _phase6_bars(c):
 @pytest.mark.cuda
 def test_eager_train_runs_repeat_bitwise(cuda):
     """Two eager fp32 runs of 3 fused steps from the seed-0 state on the
-    same batches: the same losses, parameters and running statistics, bit
-    for bit, as echoflow's training repeats. K3 sums in a fixed order; the
-    trainer's defaults leave cuDNN its own (faster) algorithms, whose
-    weight gradients add in a run-dependent order, so the runs take
-    cuDNN's deterministic ones (`torch.backends.cudnn.deterministic`)."""
+    same batches, with the trainer's defaults: the same losses, parameters
+    and running statistics, bit for bit, as echoflow's training repeats.
+    K3 sums in a fixed order, and each convolution's backward takes a
+    route that repeats (`ops/conv.ROUTES`)."""
     cfg, batches, factory = _graph_setup(3)
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        runs = [_run_steps(cfg, batches, factory, graph=False) for _ in range(2)]
-    finally:
-        torch.backends.cudnn.deterministic = before
+    runs = [_run_steps(cfg, batches, factory, graph=False) for _ in range(2)]
     (state_a, _, steps_a), (state_b, _, steps_b) = runs
     assert steps_a == steps_b
     for a, b in zip(_flat_state(state_a), _flat_state(state_b)):
         assert torch.equal(a, b)
+
+
+# Every distinct convolution of the fp32 train steps at the shape the step
+# runs it (`profile_torch.py --convs`): CLAS-FV at 4 x 3 x 32 x 112 x 112,
+# then the CAMUS trainer's SegNet and shape autoencoder at 4 x 64 x 64.
+# (input shape, weight shape, stride, padding, transposed)
+TRAIN_CONVS = [
+    ((4, 3, 32, 112, 112), (45, 3, 1, 7, 7), (1, 2, 2), (0, 3, 3), False),
+    ((4, 45, 32, 56, 56), (64, 45, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 64, 32, 56, 56), (144, 64, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 144, 32, 56, 56), (64, 144, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 64, 32, 56, 56), (128, 64, 1, 1, 1), (2, 2, 2), (0, 0, 0), False),
+    ((4, 64, 32, 56, 56), (230, 64, 1, 3, 3), (1, 2, 2), (0, 1, 1), False),
+    ((4, 230, 32, 28, 28), (128, 230, 3, 1, 1), (2, 1, 1), (1, 0, 0), False),
+    ((4, 128, 16, 28, 28), (230, 128, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 230, 16, 28, 28), (128, 230, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 128, 16, 28, 28), (288, 128, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 288, 16, 28, 28), (128, 288, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 128, 16, 28, 28), (256, 128, 1, 1, 1), (2, 2, 2), (0, 0, 0), False),
+    ((4, 128, 16, 28, 28), (460, 128, 1, 3, 3), (1, 2, 2), (0, 1, 1), False),
+    ((4, 460, 16, 14, 14), (256, 460, 3, 1, 1), (2, 1, 1), (1, 0, 0), False),
+    ((4, 256, 8, 14, 14), (460, 256, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 460, 8, 14, 14), (256, 460, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 256, 8, 14, 14), (576, 256, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 576, 8, 14, 14), (256, 576, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 256, 8, 14, 14), (512, 256, 1, 1, 1), (2, 2, 2), (0, 0, 0), False),
+    ((4, 256, 8, 14, 14), (921, 256, 1, 3, 3), (1, 2, 2), (0, 1, 1), False),
+    ((4, 921, 8, 7, 7), (512, 921, 3, 1, 1), (2, 1, 1), (1, 0, 0), False),
+    ((4, 512, 4, 7, 7), (921, 512, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 921, 4, 7, 7), (512, 921, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 512, 4, 7, 7), (1152, 512, 1, 3, 3), (1, 1, 1), (0, 1, 1), False),
+    ((4, 1152, 4, 7, 7), (512, 1152, 3, 1, 1), (1, 1, 1), (1, 0, 0), False),
+    ((4, 64, 32, 112, 112), (64, 64, 1, 1, 1), (1, 1, 1), (0, 0, 0), False),
+    ((4, 64, 32, 112, 112), (2, 64, 1, 1, 1), (1, 1, 1), (0, 0, 0), False),
+    ((4, 64, 32, 112, 112), (4, 64, 1, 1, 1), (1, 1, 1), (0, 0, 0), False),
+    ((4, 1, 66, 66), (16, 1, 3, 3), (1, 1), (0, 0), False),
+    ((4, 16, 65, 65), (32, 16, 3, 3), (2, 2), (0, 0), False),
+    ((4, 32, 33, 33), (64, 32, 3, 3), (2, 2), (0, 0), False),
+    ((4, 64, 16, 16), (64, 32, 3, 3), (2, 2), (0, 0), True),
+    ((4, 64, 32, 32), (64, 16, 3, 3), (2, 2), (0, 0), True),
+    ((4, 32, 64, 64), (4, 32, 1, 1), (1, 1), (0, 0), False),
+    ((4, 4, 65, 65), (8, 4, 3, 3), (2, 2), (0, 0), False),
+    ((4, 8, 33, 33), (16, 8, 3, 3), (2, 2), (0, 0), False),
+    ((4, 16, 17, 17), (16, 16, 3, 3), (2, 2), (0, 0), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", TRAIN_CONVS,
+                         ids=["x".join(map(str, g[0])) + "-w" + "x".join(map(str, g[1]))
+                              + "-s" + "".join(map(str, g[2])) + ("-T" if g[4] else "")
+                              for g in TRAIN_CONVS])
+def test_repeatable_conv_matches_cudnn_default(cuda, geometry):
+    """`ops/conv.convolution` (its class's routes, `ROUTES`) against
+    autograd through the plain functional conv on cuDNN's default engines,
+    fp32 with TF32 off as the trainer runs: the forward, dx, dW and db
+    within the CPU test's fp32 bar (relative L2; 2e-7 to 8e-7 read on an
+    H100), the forward bit for bit the plain one's where it is not
+    transposed (a transposed conv's forward runs on cuDNN's deterministic
+    engines), and each the same bits in two calls."""
+    from echoflow_torch.ops import conv as C
+
+    torch.backends.cudnn.allow_tf32 = False
+    xs, ws, stride, padding, transposed = geometry
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(xs, device="cuda", generator=g).requires_grad_()
+    w = (torch.randn(ws, device="cuda", generator=g) * 0.05).requires_grad_()
+    b = torch.randn(ws[1] if transposed else ws[0], device="cuda", generator=g).requires_grad_()
+    y = (C._CONV_T if transposed else C._CONV)[len(stride)](x, w, b, stride=stride,
+                                                            padding=padding)
+    dy = torch.randn(y.shape, device="cuda", generator=g)
+    want = (y.detach(), *torch.autograd.grad(y, (x, w, b), dy))
+    runs = []
+    for _ in range(2):
+        yr = C.convolution(x, w, b, stride, padding, transposed)
+        runs.append((yr.detach(), *torch.autograd.grad(yr, (x, w, b), dy)))
+    if not transposed:
+        assert torch.equal(runs[0][0], y)
+    for name, got, ref, again in zip(("y", "dx", "dW", "db"), runs[0], want, runs[1]):
+        rel = float((got.double() - ref.double()).norm() / ref.double().norm())
+        assert rel <= 1e-5, (name, rel)
+        assert torch.equal(got, again), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acnn", [False, True], ids=["plain", "acnn"])
+def test_camus_fp32_runs_repeat_bitwise(cuda, acnn):
+    """Two default runs of the CAMUS trainer on the card (fp32, its step's
+    graphs; 8 phantoms, two steps of 4), with and without the shape
+    prior, whose frozen autoencoder passes the gradient to the SegNet: the
+    same losses and the same model bits."""
+    import train_camus_torch
+
+    argv = ["--synthetic", "--epochs", "1", "--samples", "8", "--device", "cuda"]
+    runs = [train_camus_torch.main(argv + (["--acnn"] if acnn else [])) for _ in range(2)]
+    (model_a, _, losses_a), (model_b, _, losses_b) = runs
+    assert losses_a == losses_b
+    for (k, a), b in zip(model_a.state_dict().items(), model_b.state_dict().values()):
+        assert torch.equal(a, b), k
 
 
 @pytest.mark.cuda
@@ -813,9 +906,9 @@ def test_graphed_steps_follow_the_eager_steps(cuda):
     one's; a replay within phase 6's bars of the eager step from the same
     state and batch; the LR each update applied is the schedule's; K2/K3/K4
     7/6/14 a step; after 4 steps the parameters' moves on average at most
-    2x as far from the eager runs' as the eager runs are from each other
-    (cuDNN's fp32 weight gradients, amplified by Adam), or 1e-6 of the move where those
-    agree bitwise; the running statistics likewise, and
+    2x as far from the eager runs' as the eager runs are from each other,
+    or 1e-6 of the move where those agree bitwise (as they do with every
+    sum in a fixed order); the running statistics likewise, and
     `num_batches_tracked` equal. Five eager runs, because at this size the
     distance between two runs is a noisy measure of their spread. On an
     H100 a single pair read 1.28e-3 for the running statistics where the
