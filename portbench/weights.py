@@ -1,0 +1,54 @@
+"""Seeded CLAS-FV weights made on the device, in three large draws.
+
+A frozen copy of the port's init rule (`models/r2plus1d.init_weights`, the
+reference's): every conv Kaiming-normal with fan_out = out x kernel
+volume, conv biases 0, the motion head N(0, sqrt(1e-5)), comb1 uniform on
++-1/sqrt(1024), BatchNorm the identity (weight 1, bias 0, mean 0, var 1),
+the unused Kinetics fc 0. A configuration may set `residual_bn_scale`:
+each residual branch's last BatchNorm scale (`layer*.*.conv2.1.weight`)
+then starts at it, as torchvision's `zero_init_residual` starts a ResNet
+near its identity (`chip_smoke.damped_residuals`). The normal leaves come
+from one `randn` and comb1 from one `rand` of a generator on the device
+seeded with `seed`, so a seed gives the same weights on every card and no
+leaf is drawn alone.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from portbench.reference.model import state_shapes
+
+
+def make_state(cfg, seed: int, device) -> dict:
+    """The unfolded state dict (fp32) of `cfg` on `device`."""
+    shapes = state_shapes(cfg)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    conv_keys = [k for k, s in shapes.items() if k.endswith(".weight") and len(s) == 5
+                 and k != "comb_1_layer.weight"]
+    sizes = [math.prod(shapes[k]) for k in conv_keys]
+    normal = torch.randn(sum(sizes), generator=gen, device=device)
+    comb1 = torch.rand(shapes["comb_1_layer.weight"], generator=gen, device=device)
+    state = {}
+    for key, part in zip(conv_keys, torch.split(normal, sizes)):
+        shape = shapes[key]
+        std = (math.sqrt(1e-5) if key == "motion_head.weight"
+               else math.sqrt(2.0 / (shape[0] * math.prod(shape[2:]))))
+        state[key] = (part * std).reshape(shape)
+    state["comb_1_layer.weight"] = (comb1 * 2 - 1) / math.sqrt(shapes["comb_1_layer.weight"][1])
+    for key, shape in shapes.items():
+        if key in state:
+            continue
+        if key.endswith("num_batches_tracked"):
+            state[key] = torch.zeros((), dtype=torch.long, device=device)
+        elif key.endswith(("running_var", ".weight")) and len(shape) == 1:
+            state[key] = torch.ones(shape, device=device)        # BatchNorm scale, variance
+        else:
+            state[key] = torch.zeros(shape, device=device)       # biases, means, fc
+    damp = cfg.get("residual_bn_scale", 1.0)
+    for key in shapes:
+        if key.startswith("r2plus1d_model.layer") and key.endswith(".conv2.1.weight"):
+            state[key] = state[key] * damp
+    return {k: state[k] for k in shapes}
