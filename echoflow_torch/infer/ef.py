@@ -16,6 +16,7 @@ import numpy as np
 from echoflow_torch.metrics.pairs import EDESpairs
 from echoflow_torch.metrics.simpson import get2dPucks
 from echoflow_torch.ops.peaks import find_peaks_1d
+from echoflow_torch.utils.profiling import span
 
 
 def get_all_possible_start_points(ed_index: int, es_index: int,
@@ -102,20 +103,23 @@ def simpson_ef(mask_ed: np.ndarray, mask_es: np.ndarray) -> float:
 def compute_ef_using_putative_clips(fused_segmentations: np.ndarray,
                                     test_pat_index=None, return_edes: bool = False):
     """(L, H, W) label video -> list of per-beat EFs (negative EFs dropped,
-    as the reference does, fuse_utils.py:140-142)."""
-    size = lv_area_curve(fused_segmentations)
-    diastole, systole = detect_ed_es_frames(size)
-    pairs = EDESpairs(diastole, systole)
+    as the reference does, fuse_utils.py:140-142). Runs in the host span
+    `ef` (`utils/profiling.span`)."""
+    with span("ef"):
+        size = lv_area_curve(fused_segmentations)
+        diastole, systole = detect_ed_es_frames(size)
+        pairs = EDESpairs(diastole, systole)
 
-    frames = fused_segmentations.reshape(-1, *fused_segmentations.shape[1:])
-    efs = []
-    for ed, es in pairs:
-        ef = simpson_ef(frames[ed], frames[es])
-        if not np.isfinite(ef) or ef < 0:
-            # The reference only drops negatives; a zero-EDV degenerate mask
-            # yields NaN there and would poison the mean — drop those too.
-            continue
-        efs.append(ef)
+        frames = fused_segmentations.reshape(-1, *fused_segmentations.shape[1:])
+        efs = []
+        for ed, es in pairs:
+            ef = simpson_ef(frames[ed], frames[es])
+            if not np.isfinite(ef) or ef < 0:
+                # The reference only drops negatives; a zero-EDV degenerate
+                # mask yields NaN there and would poison the mean — drop
+                # those too.
+                continue
+            efs.append(ef)
     if return_edes:
         return efs, pairs
     return efs

@@ -42,25 +42,33 @@ engine drops its Pallas decoder (the port keeps the kernel per shard), and
 it shards fusion over frames (the port fuses on the first device; the
 masks are the same either way).
 
-Each layer runs inside a `torch.profiler.record_function` range named
-`echoflow_torch.<layer>` (copies, shift, backbone, projections,
-decoder_tail, model_forward, reinterp, fusion), so `profile_torch.py` can
-group device time by layer; a replay fires no range, so it profiles the
-eager body.
+Each layer runs in a span (`utils/profiling.span`), which opens the
+`torch.profiler.record_function` range `echoflow_torch.<layer>`: the
+device layers shift, backbone, projections, decoder_tail, reinterp and
+fusion also put device stamps around their work, which time it inside a
+replay too (a replay fires no range); copies and model_forward are host
+spans. The engine numbers the videos it is handed, and a video's spans
+carry that number: `engine.queue` (from `_dispatch`'s submit to the start
+of its stage), `engine.stage` (on the dispatch thread: the operands, the
+mono check, the pinned staging, the upload, the graph's feed and replay,
+the enqueued download), `engine.fetch` (the wait for the mask, then the
+unpack) and the device spans of its replay. `engine.operand_hits` and
+`engine.operand_misses` count the per-length operand cache's lookups.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import threading
+import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from echoflow_torch.models.fast_forward import folded_forward
 from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
@@ -72,6 +80,7 @@ from echoflow_torch.parallel.mesh import data_devices
 from echoflow_torch.utils.concurrency import get_or_build
 from echoflow_torch.utils.device import upload
 from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
+from echoflow_torch.utils.profiling import count, record, span
 
 CLIP_LEN = 32
 
@@ -201,6 +210,7 @@ class _Pending:
 
     packed: torch.Tensor
     done: object = None
+    seq: int | None = None     # the engine's number for the video
 
     def numpy(self) -> np.ndarray:
         if self.done is not None:
@@ -297,6 +307,7 @@ class VideoSegmenter:
         # thread at its first call, which a graph capture refuses, so a
         # key's warm-up and capture must run on one thread.
         self._dispatcher = None
+        self._seqs = itertools.count()
         if self.device.type == "cuda" and len(self._devices) == 1:
             self._run = self._graphed(self._run)
 
@@ -324,11 +335,11 @@ class VideoSegmenter:
 
     def _forward(self, xs: torch.Tensor, model) -> torch.Tensor:
         if self.decoder == "model":
-            with record_function("echoflow_torch.model_forward"):
+            with span("model_forward"):
                 seg, _ = model(xs)
         else:
             seg, _ = folded_forward(model, xs, dtype=self.dtype, with_motion=False)
-        with record_function("echoflow_torch.reinterp"):
+        with span("reinterp", device=seg.device):
             return torch.softmax(seg, dim=1)
 
     def _forward_chunk(self, xs: torch.Tensor) -> list:
@@ -348,7 +359,10 @@ class VideoSegmenter:
 
     def _operands(self, length: int, num_clips: int, step: int, t_pad: int):
         """Per-length device operands, built once (LRU-bounded)."""
+        built = []
+
         def build():
+            built.append(True)
             ops = _build_host_operands(length, num_clips, step, t_pad)
             vidx = ops["valid_clip_idx"]
             n_valid = len(vidx)
@@ -365,16 +379,18 @@ class VideoSegmenter:
                     clip_src, clip_inv)]
             return ops["k_num"], n_valid, dev
 
-        return get_or_build(self._operand_cache, self._cache_lock,
-                            (length, num_clips, step, t_pad), build,
-                            lru_cap=self.operand_cache_size)
+        ops = get_or_build(self._operand_cache, self._cache_lock,
+                           (length, num_clips, step, t_pad), build,
+                           lru_cap=self.operand_cache_size)
+        count("engine.operand_misses" if built else "engine.operand_hits")
+        return ops
 
     @torch.no_grad()
     def _run(self, video, k_num, n_fwd, fuse_method, mono, fwd, bwd, gather_idx,
              valid, clip_src, clip_inv):
         t_pad = video.shape[1]
         c_max = t_pad // CLIP_LEN
-        with record_function("echoflow_torch.shift"):
+        with span("shift", device=video.device):
             # uint8 from the host (4x less traffic), normalized on the
             # device; zeroone is idempotent, so pre-normalized floats are
             # unchanged. Padding replicates the last frame: the min/max
@@ -392,7 +408,7 @@ class VideoSegmenter:
         n_chunks, chunk, _ = self._chunk_plan(n_fwd)
         probs = [p for i in range(n_chunks)
                  for p in self._forward_chunk(clips[i * chunk:(i + 1) * chunk])]
-        with record_function("echoflow_torch.reinterp"):
+        with span("reinterp", device=video.device):
             # Restore the full k-major (K * c_max) clip grid; slots never
             # forwarded read the appended zero row (exact zeros, as the
             # all-zero `bwd` columns they meet would give).
@@ -404,7 +420,7 @@ class VideoSegmenter:
             interp = torch.einsum("kts,kcshw->kcthw", bwd, probs)   # (K, 2, T, H, W)
             k_idx = torch.arange(k_num, device=interp.device)[None, :]
         # 4. shift-aligned rater stack (T, K, ...), fused per frame
-        with record_function("echoflow_torch.fusion"):
+        with span("fusion", device=video.device):
             if fuse_method == "softmax":
                 stack = interp.movedim(2, 0)[gather_idx, k_idx]     # (T, K, 2, H, W)
                 return _packbits(softmax_mean_fuse(stack, valid))
@@ -413,13 +429,14 @@ class VideoSegmenter:
             return _packbits(fuse_frames(stack, valid, method=fuse_method))
 
     def _dispatch(self, video, num_clips, step, fuse_method, mono):
-        """A Future of `_stage_and_run` on the engine's dispatch thread."""
+        """A Future of `_stage_and_run` on the engine's dispatch thread,
+        under the video's number."""
         with self._cache_lock:
             if self._dispatcher is None:
                 self._dispatcher = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="echoflow-dispatch")
         return self._dispatcher.submit(self._stage_and_run, video, num_clips, step,
-                                       fuse_method, mono)
+                                       fuse_method, mono, next(self._seqs), time.time_ns())
 
     # ----------------------------------------------------------------- api
     def segment_video_async(self, video: np.ndarray, num_clips: int = 1,
@@ -439,9 +456,16 @@ class VideoSegmenter:
             raise ValueError(f"unknown fuse method: {fuse_method}")
         return self._dispatch(video, num_clips, step, fuse_method, mono).result()
 
-    def _stage_and_run(self, video, num_clips, step, fuse_method, mono):
+    def _stage_and_run(self, video, num_clips, step, fuse_method, mono, seq, submitted):
         """`segment_video_async`'s work, on the dispatch thread: the host
-        operands, the pinned upload, the device work, the pinned download."""
+        operands, the pinned upload, the device work, the pinned download,
+        for the video numbered `seq`, handed over at `submitted`
+        (`time.time_ns()`)."""
+        record("engine.queue", seq, submitted, time.time_ns())
+        with span("engine.stage", id=seq):
+            return self._stage(video, num_clips, step, fuse_method, mono, seq)
+
+    def _stage(self, video, num_clips, step, fuse_method, mono, seq):
         length = int(video.shape[1])
         t_pad = max(self.bucket, -(-length // self.bucket) * self.bucket)
         k_num, n_fwd, dev_ops = self._operands(length, num_clips, step, t_pad)
@@ -460,18 +484,25 @@ class VideoSegmenter:
                           pin_memory=cuda)
         vid[:, :length] = src
         vid[:, length:] = src[:, -1:]  # replicate-pad: keeps min/max honest
-        with record_function("echoflow_torch.copies"):
+        with span("copies"):
             vid = vid.to(self.device, non_blocking=True)
 
         packed = self._run(vid, k_num, n_fwd, fuse_method, mono, *dev_ops)
         if not cuda:
-            return _Pending(packed), (length, int(video.shape[3]))
+            return _Pending(packed, seq=seq), (length, int(video.shape[3]))
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        with record_function("echoflow_torch.copies"):
+        with span("copies"):
             host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
-        return _Pending(host, done), (length, int(video.shape[3]))
+        return _Pending(host, done, seq), (length, int(video.shape[3]))
+
+    @staticmethod
+    def _fetch(pending: _Pending, length: int, width: int) -> np.ndarray:
+        """The (L, H, W) mask of a dispatched video: the wait for its
+        download, then the unpack."""
+        with span("engine.fetch", id=pending.seq):
+            return _unpackbits(pending.numpy(), width)[:length]
 
     def segment_video(self, video: np.ndarray, num_clips: int = 1, step: int = 1,
                       fuse_method: str = "simple") -> np.ndarray:
@@ -481,7 +512,7 @@ class VideoSegmenter:
         `segment_a_video_with_fusion` contract, fuse_utils.py:36-102)."""
         pending, (length, width) = self.segment_video_async(video, num_clips, step,
                                                             fuse_method)
-        return _unpackbits(pending.numpy(), width)[:length]
+        return self._fetch(pending, length, width)
 
     def segment_videos(self, videos, num_clips: int = 1, step: int = 1,
                        fuse_method: str = "simple", queue_depth: int = 3):
@@ -498,7 +529,7 @@ class VideoSegmenter:
 
         def fetch(handle_future):
             pending, (length, width) = handle_future.result()
-            return _unpackbits(pending.numpy(), width)[:length]
+            return self._fetch(pending, length, width)
 
         with ThreadPoolExecutor(max_workers=2) as fetch_pool:
             inflight: deque = deque()

@@ -11,10 +11,10 @@ twin of echoflow's `_xla_decoder`.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from echoflow_torch.ops.decoder_heads import decoder_heads
 from echoflow_torch.ops.resize import linear_resize_matrix, resize_linear
+from echoflow_torch.utils.profiling import span
 
 TAP_CHANNELS = (64, 64, 128, 256, 512)
 
@@ -50,21 +50,23 @@ def folded_forward(model, video, *, dtype=torch.float32, with_motion=True):
     """video (N, 3, T, H, W) -> (seg (N, 2, T, H, W), motion (N, 4, T, H, W)
     or None), both float32. `model` must be folded; its backbone runs in the
     dtype of its own parameters (the engine casts it once for a bf16
-    backbone), the projections in `dtype`, the decoder tail in float32."""
+    backbone), the projections in `dtype`, the decoder tail in float32.
+    Each of the three runs in a device span (`utils/profiling.span`):
+    backbone, projections, decoder_tail."""
     if not model.folded:
         raise ValueError("folded_forward needs a folded model (models/fold_bn.py)")
     t, h, w = video.shape[2:]
     backbone = model.r2plus1d_model
-    with record_function("echoflow_torch.backbone"):
+    with span("backbone", device=video.device):
         taps = backbone(video.to(backbone.stem[0].weight.dtype))
-    with record_function("echoflow_torch.projections"):
+    with span("projections", device=video.device):
         projs = merged_projections(taps, model.comb_1_layer.weight, dtype)
         # The kernel upsamples H/W; the cheap low-resolution T resize runs
         # here. align_corners=True everywhere (reference decoder convention).
         projs = [resize_linear(pr, 1, t, align_corners=True).float().contiguous()
                  for pr in projs]
         args = decoder_weights(model)
-    with record_function("echoflow_torch.decoder_tail"):
+    with span("decoder_tail", device=video.device):
         seg, mot = decoder_heads(projs, *args, out_hw=(h, w), with_motion=with_motion)
         seg = seg.permute(0, 4, 1, 2, 3).float()
         if mot is None:

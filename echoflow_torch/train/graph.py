@@ -19,7 +19,10 @@ at a replay, so the wrapper does it for every replay: the update count
 tensor on the card, `loop.make_optimizer`; the wrapper writes
 `state.schedule(state.step)` into it before each replay, and a captured
 step leaves it alone), and the kernels' launch counters (the counts made
-while capturing a graph are added at each of its replays).
+while capturing a graph are added at each of its replays). The wrapper's
+spans of one call (`graph.feed`, `graph.replay`, `graph.outputs`) and the
+device spans of its replay carry the call's `state.step`, before it is
+advanced.
 
 A graph reads and writes the tensors it was captured with: for a step the
 parameters, their gradients (zeroed in place on the card, never set to
@@ -49,7 +52,7 @@ from __future__ import annotations
 
 import torch
 
-from echoflow_torch.utils.graphs import _copies, _Graphs, _signature, model_memory
+from echoflow_torch.utils.graphs import _Graphs, _signature, model_memory
 
 
 def _graph_device(state) -> torch.device:
@@ -109,23 +112,27 @@ class GraphedStep(_Graphs):
             out = self._warm_up(key, lambda: self.step_fn(state, batch))
             self.train = isinstance(out, tuple)
             return out
+        step = state.step
         if entry is None:
-            step = state.step
             entry = self._record(key, self._metrics_of, batch,
                                  lambda: _bindings(state, self.train))
             state.step = step
         else:
-            self._feed(entry, batch, _bindings(state, self.train))
-        if self.train:
-            lr = state.schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"].fill_(lr)
-        self._launch(entry)
-        metrics = _copies(entry.outputs)
+            self._feed(entry, batch, lambda: _bindings(state, self.train), id=step)
+        self._launch(entry, id=step, before=lambda: self._write_lr(state))
+        metrics = self._outputs(entry, id=step)
         if not self.train:
             return metrics
         state.step += 1
         return state, metrics
+
+    def _write_lr(self, state):
+        """The LR of the update this replay makes, into the optimizer's LR
+        tensors (a train step's)."""
+        if self.train:
+            lr = state.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"].fill_(lr)
 
     def _metrics_of(self, batch):
         out = self.step_fn(self.state, batch)

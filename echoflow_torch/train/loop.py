@@ -39,7 +39,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from echoflow_torch.models.r2plus1d import create_model, frozen_running_stats, sync_batchnorm
@@ -51,6 +50,7 @@ from echoflow_torch.train.losses import (
     ed_es_only_total_loss,
 )
 from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -168,7 +168,7 @@ def _apply_update(state: TrainState, total):
     except while a graph is captured: its wrapper writes it before each
     replay (`train/graph.py`)."""
     opt = state.optimizer
-    with record_function("echoflow_torch.train.backward"):
+    with span("train.backward", device=total.device):
         if state.grads is not None:
             state.grads.zero_()
         else:
@@ -176,7 +176,7 @@ def _apply_update(state: TrainState, total):
         total.backward()
         if state.grads is not None:
             average_gradients(state.grads, state.group)
-    with record_function("echoflow_torch.train.optimizer"):
+    with span("train.optimizer", device=total.device):
         lr = state.schedule(state.step)
         for group in opt.param_groups:
             if not isinstance(group["lr"], torch.Tensor):
@@ -227,7 +227,7 @@ def _step_metrics(total, aux, keys, batch, group=None):
 
 @contextlib.contextmanager
 def _recompute(model):
-    with record_function("echoflow_torch.train.recompute"), frozen_running_stats(model):
+    with span("train.recompute"), frozen_running_stats(model):
         yield
 
 
@@ -263,10 +263,11 @@ def make_train_step(fused_ota: bool = True, remat: bool = False):
     loss_fn = clasfv_total_loss_fused if fused_ota else clasfv_total_loss
 
     def train_step(state: TrainState, batch):
+        device = batch["video"].device
         with _cpu_conv_backend(state.model):
-            with record_function("echoflow_torch.train.forward"):
+            with span("train.forward", device=device):
                 (seg, motion), = _forwards(state, batch["video"], remat=remat)
-            with record_function("echoflow_torch.train.ota_and_chains"):
+            with span("train.ota_and_chains", device=device):
                 total, aux = loss_fn(batch["video"], seg, motion, batch["ed_label"],
                                      batch["es_label"], batch["ed_idx"], batch["es_idx"],
                                      group=state.group)
@@ -287,11 +288,12 @@ def make_ed_es_only_train_step(remat: bool = False):
     ed_idx/es_idx (N,)."""
 
     def train_step(state: TrainState, batch):
+        device = batch["ed_video"].device
         with _cpu_conv_backend(state.model):
-            with record_function("echoflow_torch.train.forward"):
+            with span("train.forward", device=device):
                 (ed_seg, ed_motion), (es_seg, es_motion) = _forwards(
                     state, batch["ed_video"], batch["es_video"], remat=remat)
-            with record_function("echoflow_torch.train.ota_and_chains"):
+            with span("train.ota_and_chains", device=device):
                 total, aux = ed_es_only_total_loss(
                     batch["ed_video"], batch["es_video"], ed_seg, ed_motion, es_seg,
                     es_motion, batch["ed_label"], batch["es_label"], batch["ed_idx"],
@@ -344,16 +346,23 @@ def make_ed_es_only_eval_step():
 def prefetch_to_device(batch_iterator, device, depth: int = 2):
     """Keeps `depth` batches in flight: each host batch is copied from
     pinned memory with `non_blocking`, so the copy of batch i+1 overlaps
-    the device work of batch i."""
+    the device work of batch i. The work of each `next()` (the next host
+    batches and their uploads) runs in the span `train.prefetch`."""
     device = torch.device(device)
+    batches, end = iter(batch_iterator), object()
     queue: deque = deque()
-    for batch in batch_iterator:
-        queue.append({k: upload(torch.as_tensor(np.asarray(v)), device)
-                      for k, v in batch.items()})
-        if len(queue) >= depth:
-            yield queue.popleft()
-    while queue:
-        yield queue.popleft()
+    batch = None
+    while True:
+        with span("train.prefetch"):
+            while batch is not end and len(queue) < depth:
+                batch = next(batches, end)
+                if batch is not end:
+                    queue.append({k: upload(torch.as_tensor(np.asarray(v)), device)
+                                  for k, v in batch.items()})
+            if not queue:
+                return
+            out = queue.popleft()
+        yield out
 
 
 def compiled_steps(state: TrainState, step_factory=None, eval_step_factory=None):

@@ -34,6 +34,14 @@ and captures again. `clear()` drops them all.
 What the captured code does in Python happens once, at capture, and never
 at a replay: the kernels' launch counters are advanced by the wrapper (the
 counts made while capturing a graph are added at each of its replays).
+The wrapper's host work runs in the spans (`utils/profiling.span`)
+`graph.warm_up`, `graph.capture`, `graph.feed` (the bindings check and the
+input copies), `graph.replay` (the launch, and what a caller writes before
+it) and `graph.outputs` (the output copies), and counts `graph.warm_ups`,
+`graph.captures`, `graph.replays` and `graph.evictions`. The device spans
+captured in a graph read their replay's id from the graph's `ids` slot,
+which a replay writes while tracing is live: the id of the span the call
+runs in, or the one its caller gives.
 A graph reads and writes the tensors it was captured with; a caller's
 `bindings` gives the addresses of those outside the graph's own inputs (a
 model's parameters, an optimizer's state), and a call raises if any is no
@@ -56,6 +64,7 @@ import torch
 from echoflow_torch.ops import decoder_heads as dh
 from echoflow_torch.ops import resize, warp
 from echoflow_torch.ops import warp_kernel as wk
+from echoflow_torch.utils.profiling import count, current_id, live, replay_ids, span
 
 # The kernel wrappers whose `.launches` a replay advances, by module and
 # name (looked up at each call: a caller may swap a wrapper for a while).
@@ -104,6 +113,7 @@ class _Graph:
     outputs: object              # the graph's static outputs
     launches: tuple              # kernel launches of one replay
     bindings: tuple
+    ids: object                  # the slot its device spans read a replay's id from
     replays: int = field(default=0)
 
 
@@ -198,7 +208,9 @@ class _Graphs:
         return entry
 
     def _warm_up(self, key, fn):
-        out = self._run_on_side_stream(fn)
+        with span("graph.warm_up"):
+            out = self._run_on_side_stream(fn)
+        count("graph.warm_ups")
         self.warmed[key] = None
         while len(self.warmed) > self.max_graphs:
             self.warmed.popitem(last=False)
@@ -207,38 +219,58 @@ class _Graphs:
     def _record(self, key, fn, inputs: dict, bindings: Callable[[], tuple]) -> _Graph:
         """Capture fn(static inputs) at this key. The launch counts of the
         capture are taken back: the replay that follows adds them."""
-        static = {k: v.clone() for k, v in inputs.items()}
-        launches, misses = _launches(), _constant_misses()
-        out, graph = self._capture(lambda: fn(static))
-        captured = tuple(b - a for a, b in zip(launches, _launches()))
-        if _constant_misses() != misses:
-            raise RuntimeError("graphed: a device constant was first made during the capture; "
-                               "the warm-up should have made it")
-        for (mod, name), count in zip(_COUNTERS, captured):
-            getattr(mod, name).launches -= count
-        entry = _Graph(graph, static, out, captured, bindings())
+        with span("graph.capture"):
+            static = {k: v.clone() for k, v in inputs.items()}
+            ids = torch.full((1,), -1, dtype=torch.int64, device=self.memory.device)
+            launches, misses = _launches(), _constant_misses()
+            with replay_ids(ids):
+                out, graph = self._capture(lambda: fn(static))
+            captured = tuple(b - a for a, b in zip(launches, _launches()))
+            if _constant_misses() != misses:
+                raise RuntimeError("graphed: a device constant was first made during the "
+                                   "capture; the warm-up should have made it")
+            for (mod, name), n in zip(_COUNTERS, captured):
+                getattr(mod, name).launches -= n
+            entry = _Graph(graph, static, out, captured, bindings(), ids)
+        count("graph.captures")
         self.warmed.pop(key, None)
         self.graphs[key] = entry
         while len(self.graphs) > self.max_graphs:
             self.graphs.popitem(last=False)
+            count("graph.evictions")
         return entry
 
     @staticmethod
-    def _feed(entry: _Graph, inputs: dict, bindings: tuple):
+    def _feed(entry: _Graph, inputs: dict, bindings: Callable[[], tuple], id=None):
         """Check the bindings and copy `inputs` into the graph's own."""
-        if bindings != entry.bindings:
-            raise RuntimeError("graphed: a parameter, gradient, buffer or optimizer tensor "
-                               "was replaced since the capture (a restore?); make a new "
-                               "graphed step")
-        for k, v in inputs.items():
-            entry.inputs[k].copy_(v, non_blocking=True)
+        with span("graph.feed", id=id):
+            if bindings() != entry.bindings:
+                raise RuntimeError("graphed: a parameter, gradient, buffer or optimizer "
+                                   "tensor was replaced since the capture (a restore?); make "
+                                   "a new graphed step")
+            for k, v in inputs.items():
+                entry.inputs[k].copy_(v, non_blocking=True)
 
     @staticmethod
-    def _launch(entry: _Graph):
-        entry.graph.replay()
+    def _launch(entry: _Graph, id=None, before: Callable[[], None] = lambda: None):
+        """`before()`, then the replay, under the id `id` (default: the
+        id of the span the call runs in)."""
+        with span("graph.replay", id=id):
+            before()
+            if live():
+                rid = current_id()
+                entry.ids.fill_(-1 if rid is None else rid)
+            entry.graph.replay()
         entry.replays += 1
-        for (mod, name), count in zip(_COUNTERS, entry.launches):
-            getattr(mod, name).launches += count
+        count("graph.replays")
+        for (mod, name), n in zip(_COUNTERS, entry.launches):
+            getattr(mod, name).launches += n
+
+    @staticmethod
+    def _outputs(entry: _Graph, id=None):
+        """Copies of the graph's outputs."""
+        with span("graph.outputs", id=id):
+            return _copies(entry.outputs)
 
 
 class GraphedFunction(_Graphs):
@@ -298,6 +330,6 @@ class GraphedFunction(_Graphs):
                 return self._warm_up(key, lambda: call(tensors))
             entry = self._record(key, call, tensors, bindings)
         else:
-            self._feed(entry, tensors, bindings())
+            self._feed(entry, tensors, bindings)
         self._launch(entry)
-        return _copies(entry.outputs)
+        return self._outputs(entry)

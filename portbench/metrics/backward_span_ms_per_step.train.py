@@ -1,0 +1,16 @@
+"""Device milliseconds a step of the program's `train.backward` span
+(`train/loop.py`: the gradients zeroed, then the backward: the conv
+routes of ops/conv.py, K3, K4, BatchNorm) in the traced train window:
+the stamps around it inside the graphed step's replays
+(portbench/spans.py). Reads `backward_span_ms_per_step.train` (moves
+train_step_ms) and `.train.bf16` (moves train_step_ms.bf16)."""
+
+from portbench import spans
+
+
+def read(ctx):
+    snap = spans.program(ctx)
+    if snap is None or not ctx["steps"]:
+        return None
+    ms = spans.device_ms(snap, "train.backward")
+    return ms / ctx["steps"] if ms > 0 else None

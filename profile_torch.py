@@ -563,7 +563,8 @@ def main():
               .video.astype(np.uint8) for i in range(args.videos)]
 
     def dispatch(video):   # on this thread, which the profiler records
-        return engine._stage_and_run(video, 5, 1, "simple", None)
+        return engine._stage_and_run(video, 5, 1, "simple", None, next(engine._seqs),
+                                     time.time_ns())
 
     dispatch(videos[0])[0].numpy()
     torch.cuda.synchronize()

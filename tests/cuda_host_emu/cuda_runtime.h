@@ -1,6 +1,7 @@
-// Host emulation of the CUDA subset that echoflow_torch/csrc/warp.cu uses,
-// so its kernels can be compiled with g++ and run on a machine without a
-// GPU (tests/test_torch_warp_emulated.py). Not a CUDA implementation: only
+// Host emulation of the CUDA subset that echoflow_torch/csrc/warp.cu and
+// csrc/spans.cu use, so their kernels can be compiled with g++ and run on a
+// machine without a GPU (tests/test_torch_warp_emulated.py,
+// tests/test_torch_tracing.py). Not a CUDA implementation: only
 // what those kernels need.
 //
 // A launch runs its blocks one after another and each warp as 32
@@ -17,6 +18,7 @@
 #pragma once
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -72,6 +74,20 @@ inline int atomicAdd(int* a, int v) {
   const int old = *a;
   *a += v;
   return old;
+}
+
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
+  std::lock_guard<std::mutex> lock(emu_atomic_mutex);
+  const unsigned long long old = *a;
+  *a += v;
+  return old;
+}
+
+// %globaltimer: nanoseconds of the host's system clock.
+#define ECHOFLOW_CUDA_HOST_EMU 1
+inline unsigned long long emu_globaltimer() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+      std::chrono::system_clock::now().time_since_epoch()).count();
 }
 
 inline std::atomic<int> emu_error_total{0};

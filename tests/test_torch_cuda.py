@@ -1163,3 +1163,152 @@ def test_graphed_camus_trainer_follows_the_eager_one(cuda, monkeypatch):
     assert max(abs(a - b) / abs(b) for a, b in zip(losses, eager)) <= 1e-3
     step, validation = made
     assert len(step.graphs) == 2 and len(validation.graphs) == 1
+
+
+# ---------------------------------------------------------------------- spans
+
+def _traced(fn, sessions=6):
+    """(profiler, the program's spans, fn()) of a torch.profiler session
+    (host and card) that recorded a device event; a session that recorded
+    none (the card's sandbox does that at times) is run again, as
+    portbench/trace.py does."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from echoflow_torch.utils.profiling import spans
+
+    for attempt in range(sessions):
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            return prof, spans(), out
+    raise RuntimeError(f"torch.profiler recorded no device event in {sessions} sessions")
+
+
+def _trace_start_ns(prof) -> int:
+    result = prof.profiler.kineto_results
+    if hasattr(result, "trace_start_ns"):
+        return int(result.trace_start_ns())
+    return int(result.trace_start_us()) * 1000
+
+
+def _stamp_records_ns(prof) -> list:
+    """Start times (ns since the epoch) of the profiled stamp kernels."""
+    start = _trace_start_ns(prof)
+    return sorted(start + e.time_range.start * 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name.startswith("span_stamp_kernel"))
+
+
+def _graphed_work():
+    """A function graph with a device span inside, warmed up and captured."""
+    from echoflow_torch.utils.graphs import GraphedFunction
+    from echoflow_torch.utils.profiling import span
+
+    def work(x):
+        with span("t.work", device=x.device):
+            return torch.tanh(x @ x) * 2.0
+
+    g = GraphedFunction(work)
+    x = torch.randn(512, 512, device="cuda")
+    g(x)
+    g(x)
+    torch.cuda.synchronize()
+    return g, x
+
+
+@pytest.mark.cuda
+def test_span_stamps_give_each_replay_its_own_slots_and_id(cuda):
+    """The engine's graph at queue depth 3, traced: 6 replays give 6 x 14
+    stamps (a video of one forward chunk: shift, backbone, projections,
+    decoder_tail, reinterp, reinterp, fusion), each replay in ring slots
+    of its own under its video's number, its spans in the order the graph
+    runs them and apart from the other replays'; no stamp dropped; the
+    masks are the untraced replays'."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.r2plus1d import create_model
+
+    state = create_model(seed=1).state_dict()
+    videos = [make_beating_video(num_frames=100, period=40.0, seed=i).video.astype(np.uint8)
+              for i in range(6)]
+    engine = VideoSegmenter(state, dtype=torch.float32)
+    want = list(engine.segment_videos(videos, num_clips=5, step=1))    # warm-up, capture
+    first = next(engine._seqs)
+    prof, snap, got = _traced(lambda: list(engine.segment_videos(videos, num_clips=5, step=1,
+                                                                   queue_depth=3)))
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    ids = sorted({s["id"] for s in snap["device"]})
+    assert len(ids) == 6 and ids[0] > first and snap["dropped"] == 0
+    assert len(snap["device"]) == 6 * 7 and len(_stamp_records_ns(prof)) == 6 * 14
+    order = ["shift", "backbone", "projections", "decoder_tail", "reinterp", "reinterp", "fusion"]
+    bounds = []
+    for i in ids:
+        mine = sorted((s for s in snap["device"] if s["id"] == i), key=lambda s: s["start_ns"])
+        assert [s["name"] for s in mine] == order
+        assert all(a["end_ns"] <= b["start_ns"] for a, b in zip(mine, mine[1:]))
+        bounds.append((mine[0]["start_ns"], mine[-1]["end_ns"]))
+    assert all(a[1] <= b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.cuda
+def test_span_times_agree_with_the_profilers_clock(cuda):
+    """Device spans (the ring's times on the host clock) against their
+    stamp kernels' records in the profiler's trace, and host spans
+    against their `record_function` ranges: each within 20 us. Each
+    replay's device span carries the id of the span it was called in.
+    The session's first call is left out of the host comparison: the
+    first range of a name in a session pays the profiler's own set-up
+    between its timestamp and the block (up to 21.5 us seen)."""
+    from echoflow_torch.utils.profiling import span
+
+    g, x = _graphed_work()
+
+    def calls():
+        for i in range(6):
+            with span("t.call", id=i):
+                g(x)
+
+    prof, snap, _ = _traced(calls)
+    device = sorted(t for s in snap["device"] for t in (s["start_ns"], s["end_ns"]))
+    records = _stamp_records_ns(prof)
+    assert len(device) == len(records) == 12
+    gaps = [round((a - b) / 1e3, 2) for a, b in zip(device, records)]
+    print(f"device stamps less their kernel records, us: {gaps}")
+    assert max(abs(g) for g in gaps) <= 20.0
+    assert sorted(s["id"] for s in snap["device"]) == [0, 1, 2, 3, 4, 5]
+    start = _trace_start_ns(prof)
+    for name in ("t.call", "graph.feed", "graph.replay", "graph.outputs"):
+        ranges = sorted((start + e.time_range.start * 1e3, start + e.time_range.end * 1e3)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and e.name == "echoflow_torch." + name)
+        hosts = sorted((r["start_ns"], r["end_ns"]) for r in snap["host"] if r["name"] == name)
+        assert len(ranges) == len(hosts) == 6, name
+        gaps = [(round((a0 - b0) / 1e3, 2), round((a1 - b1) / 1e3, 2))
+                for (a0, a1), (b0, b1) in zip(hosts, ranges)]
+        print(f"{name}: host spans less their ranges (start, end), us: {gaps}")
+        assert max(abs(g) for pair in gaps[1:] for g in pair) <= 20.0, (name, gaps)
+
+
+@pytest.mark.cuda
+def test_span_flag_off_writes_nothing(cuda):
+    """After a traced session, replays and eager device spans outside any
+    session take no ring slot: the flag is off on the card (the stamps
+    still run, captured in the graph)."""
+    from echoflow_torch.utils import profiling
+
+    g, x = _graphed_work()
+    _traced(lambda: g(x))
+    for _ in range(3):
+        out = g(x)
+        with profiling.span("t.eager", device=x.device):
+            torch.tanh(x)
+    torch.cuda.synchronize()
+    ring = profiling._TRACER.rings[x.device.index]
+    assert ring.state.tolist() == [0, 2]
+    torch.testing.assert_close(out, torch.tanh(x @ x) * 2.0)
