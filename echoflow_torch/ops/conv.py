@@ -25,13 +25,15 @@ would let the choice, and so the bits, vary between processes):
   gradient, one for each phase of the stride (`input_grad_subpixel`).
 - "cudnn_deterministic": cuDNN's deterministic engine for this one
   gradient (`cudnn_grads`).
-- "gemm": a weight gradient as one cuBLAS GEMM a kernel tap over copies
-  of the tap's strided input window (`weight_grad_gemm`). cuBLAS splits a
-  long reduction over a workspace and adds the parts in a fixed order, so
-  its results repeat on one architecture. No class takes it now: where a
-  class's default did not repeat, it was slower than cuDNN's
-  deterministic engine; where the default repeats (the heads' dW, 50.8 ms
-  against 1.5 by GEMM) the class keeps the default.
+- "gemm": a weight gradient as cuBLAS GEMMs (`weight_grad_gemm`). A
+  pointwise conv's reads `x` and `dy` where they lie, a batched GEMM a
+  sample over chunks of its positions (`pointwise_weight_grad`); any other
+  takes one GEMM a kernel tap over copies of the tap's strided input
+  window. cuBLAS picks its kernel from the shapes and adds split parts in
+  a fixed order, so its results repeat on one architecture. The pointwise
+  classes take it: cuDNN's default gave the heads' dW (C_out 2 and 4 over
+  the decoder's full-resolution output) to a grouped direct kernel that
+  spreads the work over the C_out x C_in outputs alone, 25 ms each.
 
 The bias gradient is a sum over fixed dimensions. Everything else (the
 CPU, bf16, inference under `no_grad`) calls the plain functional conv.
@@ -69,13 +71,46 @@ def _windows(x, ksize, stride, padding, out_size):
             slice(t, t + s * (o - 1) + 1, s) for t, s, o in zip(tap, stride, out_size))]
 
 
+# A pointwise weight gradient splits each sample's positions into at most
+# this many equal chunks, one GEMM each (`pointwise_weight_grad`). The fp32
+# step's three (comb2 and the heads, 4 x 401,408 positions) on an NVIDIA
+# H100 80GB HBM3: 2.39 ms with 32 chunks, 1.53 with 64, 1.25 with 128;
+# 1.09 with 256, where cuBLAS splits each GEMM again over a 32 MiB
+# workspace (48 MiB allocated, against 8 for 128).
+POINTWISE_CHUNKS = 128
+
+
+def pointwise_weight_grad(x, dy):
+    """The weight gradient (C_out, C_in) of a pointwise conv (kernel all
+    ones, stride one, no padding), dW = sum over n, p of dy[n, :, p] x[n, :, p]^T,
+    read where `x` and `dy` lie (NCDHW or channels-last: a view (C, P) of
+    a sample with a unit stride on one side). A GEMM with so long a
+    reduction and so few outputs leaves the card nearly empty, so each
+    sample's P positions split into S = gcd(P, POINTWISE_CHUNKS) chunks: a
+    batched GEMM a sample, (S, C_out, P/S) x (S, P/S, C_in), over strided
+    views, then one sum of the N x S partial results in a fixed order.
+    Allocates the partial results, N S C_out C_in elements."""
+    n, p = x.shape[0], math.prod(x.shape[2:])
+    s = math.gcd(p, POINTWISE_CHUNKS)
+    parts = dy.new_empty((n, s, dy.shape[1], x.shape[1]))
+    for i in range(n):
+        # (C, P) -> (S, C, P/S): chunk j holds positions j P/S to (j+1) P/S - 1.
+        g = dy[i].flatten(1).unflatten(1, (s, p // s)).transpose(0, 1)
+        u = x[i].flatten(1).unflatten(1, (s, p // s)).transpose(0, 1)
+        torch.bmm(g, u.transpose(1, 2), out=parts[i])
+    return parts.sum((0, 1))
+
+
 def weight_grad_gemm(x, dy, ksize, stride, padding):
     """The weight gradient of `conv(x, w, stride, padding)` (no dilation,
-    one group) for the output gradient `dy`: for each kernel tap one GEMM
-    (C_out, N·P) x (N·P, C_in), P the output's positions, over a copy of
-    the tap's window of `x` laid out (C_in, N·P) and one of `dy` laid out
-    (C_out, N·P). Returns (C_out, C_in, *ksize)."""
+    one group) for the output gradient `dy`. A pointwise conv takes
+    `pointwise_weight_grad`, which copies neither operand; any other, for
+    each kernel tap one GEMM (C_out, N·P) x (N·P, C_in), P the output's
+    positions, over a copy of the tap's window of `x` laid out (C_in, N·P)
+    and one of `dy` laid out (C_out, N·P). Returns (C_out, C_in, *ksize)."""
     co, ci = dy.shape[1], x.shape[1]
+    if all(k == 1 for k in ksize) and all(s == 1 for s in stride) and not any(padding):
+        return pointwise_weight_grad(x, dy).view(co, ci, *ksize)
     g = dy.transpose(0, 1).reshape(co, -1)
     taps = dy.new_empty((math.prod(ksize), co, ci))
     for i, win in enumerate(_windows(x, ksize, stride, padding, dy.shape[2:])):
@@ -200,8 +235,9 @@ ROUTES = {
     #                                                   dW 28.43* / 27.59 / 29.71
     "(1,3,3)/(1,2,2)": ("subpixel", "cudnn"),           # dx 1.84* / 16.67 / 3.86; dW 2.51
     "(3,1,1)/(2,1,1)": ("cudnn", "cudnn"),              # dx 0.88; dW 2.18
-    "(1,1,1)/(2,2,2)": ("cudnn", "cudnn"),              # dx 0.32; dW 2.19
-    "(1,1,1)/(1,1,1)": ("cudnn", "cudnn"),              # dx 1.64; dW 53.77 (gemm 3.15)
+    "(1,1,1)/(2,2,2)": ("cudnn", "gemm"),               # dx 0.32; dW 2.17 / 2.19 / 0.40
+    "(1,1,1)/(1,1,1)": ("cudnn", "gemm"),               # dx 1.64; dW 54.32 / 53.78 / 1.27
+    #                                                   (the heads 25.59 and 25.65 each)
     # The CAMUS trainer's SegNet and shape autoencoder.
     "(3,3)/(1,1)": ("cudnn_deterministic", "cudnn"),    # dx not in the step, as the
     #                                                   stem's; dW 0.23

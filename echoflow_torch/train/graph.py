@@ -50,6 +50,8 @@ captured). A failed capture raises; nothing falls back to the eager call.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from echoflow_torch.utils.graphs import _Graphs, _signature, model_memory
@@ -93,6 +95,37 @@ def _bindings(state, train: bool) -> tuple:
     return tuple(ptrs)
 
 
+_blas_remade: weakref.WeakSet = weakref.WeakSet()   # the `_Memory`s done
+
+
+def _remake_blas_workspaces(memory):
+    """Before the first capture into `memory`'s pool: cuBLAS's workspaces
+    dropped (as torch's own graph trees do before a capture,
+    `torch._inductor.cudagraph_trees.clear_cublass_cache`), the cache
+    emptied, and the workspaces made again on the side stream, on this
+    thread and on autograd's device thread (a GEMM and its backward on 1x1
+    matrices). cuBLAS keeps a workspace (32 MiB on an H100) for each
+    thread's handle and stream from its first GEMM there until the process
+    ends. The warm-up made them in blocks of segments that the step had
+    freed, and kept those segments reserved beside the graph's pool: 196
+    MiB at the fp32 CLAS-FV step, whose backward starts with GEMMs
+    (`ops/conv.pointwise_weight_grad`). Made now, they take segments of
+    their own, outside the pool."""
+    if memory in _blas_remade:
+        return
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.synchronize(memory.device)
+    torch.cuda.empty_cache()
+    current = torch.cuda.current_stream(memory.device)
+    side = memory.stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        a = torch.ones((1, 1), device=memory.device, requires_grad=True)
+        torch.mm(a, a).sum().backward()
+    current.wait_stream(side)
+    _blas_remade.add(memory)
+
+
 class GraphedStep(_Graphs):
     """`graphed`'s callable: the step `step_fn` of `state` as CUDA graphs,
     one for each batch signature (see the module docstring). `graphs`
@@ -125,6 +158,10 @@ class GraphedStep(_Graphs):
             return metrics
         state.step += 1
         return state, metrics
+
+    def _capture(self, fn):
+        _remake_blas_workspaces(self.memory)
+        return super()._capture(fn)
 
     def _write_lr(self, state):
         """The LR of the update this replay makes, into the optimizer's LR

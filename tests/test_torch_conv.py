@@ -188,3 +188,59 @@ def test_model_layers_call_the_repeatable_convolution(monkeypatch):
     assert calls == [((6, 4, 1, 3, 3), (1, 2, 2), (0, 1, 1), False),
                      ((6, 4, 3, 3), (2, 2), 0, False), ((6, 4, 3, 3), (2, 2), 0, False),
                      ((6, 4, 3, 3), (2, 2), 0, True)]
+
+
+# (N, C_in, C_out, spatial size, channels-last-3d input): the pointwise
+# class's shapes at a small size, the heads' C_out 2 and 4 and comb2's 64;
+# 4 x 8 x 8 = 256 positions split into 128 chunks of two, 3 x 5 x 7 = 105
+# into one chunk.
+POINTWISE = [
+    (1, 64, 2, (3, 5, 7), False),
+    (3, 64, 4, (3, 5, 7), False),
+    (3, 64, 64, (4, 8, 8), False),
+    (1, 64, 64, (2, 4, 6), False),
+    (3, 64, 2, (4, 8, 8), True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", POINTWISE,
+                         ids=[f"n{n}-co{co}" + ("-cl" if cl else "") for n, _, co, _, cl in POINTWISE])
+def test_pointwise_weight_grad_matches_autograd(case, dtype, monkeypatch):
+    """`weight_grad_gemm` of a pointwise conv (kernel all ones, stride one,
+    no padding), which runs `pointwise_weight_grad`, against autograd of
+    the plain conv: float64 within 1e-12, fp32 within FP32_REL, relative
+    L2. Every GEMM reads views of `x` and `dy` themselves, no copy: their
+    operands share the tensors' storage."""
+    n, ci, co, size, channels_last = case
+    rng = np.random.RandomState(n + co)
+    x = torch.tensor(rng.randn(n, ci, *size), dtype=dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    w = torch.tensor(rng.randn(co, ci, 1, 1, 1) * 0.3, dtype=dtype, requires_grad=True)
+    y = F.conv3d(x, w)
+    dy = torch.tensor(rng.randn(*y.shape), dtype=dtype)
+    want = torch.autograd.grad(y, w, dy)[0]
+    bmm, operands = torch.bmm, []
+
+    def recording(a, b, **kwargs):
+        operands.append((a.untyped_storage().data_ptr(), b.untyped_storage().data_ptr()))
+        return bmm(a, b, **kwargs)
+
+    monkeypatch.setattr(torch, "bmm", recording)
+    got = C.weight_grad_gemm(x, dy, (1, 1, 1), (1, 1, 1), (0, 0, 0))
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+    assert _rel(got, want) <= (FP64_REL if dtype == torch.float64 else FP32_REL)
+    storage = (dy.untyped_storage().data_ptr(), x.untyped_storage().data_ptr())
+    assert operands == [storage] * n
+
+
+@pytest.mark.parametrize("cls, routes", [("(1,1,1)/(1,1,1)", ("cudnn", "gemm")),
+                                         ("(1,1,1)/(2,2,2)", ("cudnn", "gemm")),
+                                         ("(1,1)/(1,1)", ("cudnn", "cudnn_deterministic"))])
+def test_pointwise_classes_routes(cls, routes):
+    """The CLAS-FV step's pointwise classes (the decoder's comb2 and heads;
+    the downsampling shortcuts) take the "gemm" weight gradient, off
+    cuDNN's default, and keep cuDNN's default input gradient; the CAMUS
+    trainer's 2-D pointwise class keeps cuDNN's deterministic engine."""
+    assert C.ROUTES[cls] == routes

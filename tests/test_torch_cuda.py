@@ -882,6 +882,82 @@ def test_repeatable_conv_matches_cudnn_default(cuda, geometry):
 
 
 @pytest.mark.cuda
+def test_pointwise_weight_grad_copies_no_operand(cuda):
+    """The weight gradient of comb2 (64 -> 64, pointwise, over the decoder's
+    4 x 64 x 32 x 112 x 112 output) on its class's route: after one call
+    (which may make cuBLAS's workspace), a call raises the peak of
+    allocated device memory by less than 64 MiB. A copy of either operand
+    would take 392 MiB; the route holds 8 MiB of partial results."""
+    from echoflow_torch.ops import conv as C
+
+    xs, ws = (4, 64, 32, 112, 112), (64, 64, 1, 1, 1)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(xs, device="cuda", generator=g)
+    w = torch.randn(ws, device="cuda", generator=g)
+    dy = torch.randn(xs, device="cuda", generator=g)
+    route = C.ROUTES[C.geometry_class(ws, (1, 1, 1), False)][1]
+    assert route == "gemm"
+    C._weight_grad(route, x, w, dy, (1, 1, 1), (0, 0, 0), False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dw = C._weight_grad(route, x, w, dy, (1, 1, 1), (0, 0, 0), False)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert dw.shape == ws
+    assert grown < 64 * 2**20, grown / 2**20
+
+
+def _replay_kernel_names(batches):
+    """The kernel names of one profiled replay of the graphed fp32 step at
+    full width (after its warm-up, and its capture with the first replay)."""
+    from echoflow_torch.train.graph import graphed
+    from echoflow_torch.train.loop import TrainConfig, create_train_state, make_train_step
+
+    state = create_train_state(0, TrainConfig(), device="cuda")
+    step = graphed(make_train_step(fused_ota=True), state)
+    for batch in batches[:2]:
+        state, _ = step(state, batch)
+    prof, _, _ = _traced(lambda: step(state, batches[2]))
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_graphed_fp32_step_takes_the_pointwise_weight_grads_off_cudnn(cuda, monkeypatch):
+    """A profiled replay of the graphed fp32 step at full width (batch
+    4 x 3 x 32 x 112 x 112), against one with the pointwise class's weight
+    gradient on cuDNN's default: cuDNN's grouped direct weight-gradient
+    kernel runs 3 times there (the stem and the two heads) and once here
+    (the stem, class (1,7,7)/(1,2,2), which keeps cuDNN's default), and the
+    replay runs 12 cuBLAS GEMMs more: one batched GEMM a sample for each of
+    comb2 and the two heads."""
+    import gc
+    import re
+
+    from echoflow_torch.ops import conv as C
+    from echoflow_torch.train.loop import TrainConfig, prefetch_to_device
+    from train_clasfv_torch import synthetic_batches
+
+    cfg = TrainConfig()
+    batches = list(prefetch_to_device(
+        synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 3, seed=0),
+        "cuda"))
+    cublas = re.compile(r"(?i)(gemm|nvjet)")
+
+    def counts(names):
+        return (sum("wgrad2d_grouped_direct" in n for n in names),
+                sum(bool(cublas.search(n)) and "implicit" not in n for n in names))
+
+    routed = counts(_replay_kernel_names(batches))
+    gc.collect()
+    torch.cuda.empty_cache()
+    monkeypatch.setitem(C.ROUTES, "(1,1,1)/(1,1,1)", ("cudnn", "cudnn"))
+    default = counts(_replay_kernel_names(batches))
+    assert default[0] == 3 and routed[0] == 1, (routed, default)
+    assert routed[1] - default[1] == 3 * cfg.batch_size, (routed, default)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("acnn", [False, True], ids=["plain", "acnn"])
 def test_camus_fp32_runs_repeat_bitwise(cuda, acnn):
     """Two default runs of the CAMUS trainer on the card (fp32, its step's
