@@ -79,7 +79,7 @@ namespace {
 constexpr int kC = 64;                 // comb2 in and out channels
 constexpr int kSeg = 2;
 constexpr int kMot = 4;
-constexpr int kMaxSrc = 4;
+constexpr int kMaxSrc = 5;             // R(2+1)D-18 merges its taps to 4, ir-CSN-152 has 5
 constexpr int kTile = 64;              // output pixels per warpgroup tile (wgmma M)
 constexpr int kRowsPerWarp = kTile / 4;
 constexpr int kWarpGroups = 4;
@@ -97,7 +97,7 @@ constexpr int kColBytes = kColStride * 4;
 // most `echoflow_decoder_heads_column_budget()`).
 constexpr int kSmemParams = 2 * kOperand;
 constexpr int kSmemTiles = kSmemParams + (2 * kC + kC * kSeg + kC * kMot) * 4;
-constexpr int kSmemTileBytes = 2 * kMaxSrc * 32;   // two sets of SourceTile[4]
+constexpr int kSmemTileBytes = 2 * kMaxSrc * 32;   // two sets of SourceTile[kMaxSrc]
 constexpr int kSmemXPlan = kSmemTiles + kWarpGroups * kSmemTileBytes;
 constexpr int kSmemFixed = kSmemXPlan + kWarpGroups * kMaxSrc * (kTile + 1) * 16;
 constexpr int kSmemLimit = 227 * 1024;   // a block's most dynamic shared memory on an H100
@@ -218,9 +218,9 @@ __device__ __forceinline__ float4 blend4(float4 acc, float2 w, float4 lo, float4
 constexpr int kBatch = 2;
 __device__ __forceinline__ void stage_columns(const SourceTile* tiles, int warp, int lane,
                                               float* cols) {
-  const int4 n_cols = make_int4(tiles[0].n_cols, tiles[1].n_cols, tiles[2].n_cols,
-                                tiles[3].n_cols);
-  const int total = n_cols.x + n_cols.y + n_cols.z + n_cols.w;
+  const int n0 = tiles[0].n_cols, n1 = tiles[1].n_cols, n2 = tiles[2].n_cols,
+            n3 = tiles[3].n_cols, n4 = tiles[4].n_cols;
+  const int total = n0 + n1 + n2 + n3 + n4;
   const int half = lane >> 4, quad = lane & 15;
   for (int k0 = 2 * warp + half; k0 < total; k0 += 8 * kBatch) {
     float4 a[kBatch], b[kBatch];
@@ -230,9 +230,10 @@ __device__ __forceinline__ void stage_columns(const SourceTile* tiles, int warp,
     for (int u = 0; u < kBatch; ++u) {
       // Column k: source r, its column j.
       int j = k0 + 8 * u, r = 0;
-      if (j >= n_cols.x) { j -= n_cols.x; r = 1;
-        if (j >= n_cols.y) { j -= n_cols.y; r = 2;
-          if (j >= n_cols.z) { j -= n_cols.z; r = 3; } } }
+      if (j >= n0) { j -= n0; r = 1;
+        if (j >= n1) { j -= n1; r = 2;
+          if (j >= n2) { j -= n2; r = 3;
+            if (j >= n3) { j -= n3; r = 4; } } } }
       at[u] = -1;
       if (k0 + 8 * u < total) {
         const SourceTile& st = tiles[r];
@@ -413,9 +414,12 @@ decoder_heads_kernel(Sources src, const int4* __restrict__ y_tab, const int4* __
           const int4 yt = __ldg(y_tab + t * h_out + y);
           const int4 head = __ldg(plan + t * (kTile + 1));   // (first column, columns, cols_at)
           // Source t's fields, by selects (an index would copy `src` to local memory).
-          const float* p = t == 0 ? src.p[0] : t == 1 ? src.p[1] : t == 2 ? src.p[2] : src.p[3];
-          const int h = t == 0 ? src.h[0] : t == 1 ? src.h[1] : t == 2 ? src.h[2] : src.h[3];
-          const int w = t == 0 ? src.w[0] : t == 1 ? src.w[1] : t == 2 ? src.w[2] : src.w[3];
+          const float* p = t == 0 ? src.p[0] : t == 1 ? src.p[1] : t == 2 ? src.p[2]
+                         : t == 3 ? src.p[3] : src.p[4];
+          const int h = t == 0 ? src.h[0] : t == 1 ? src.h[1] : t == 2 ? src.h[2]
+                      : t == 3 ? src.h[3] : src.h[4];
+          const int w = t == 0 ? src.w[0] : t == 1 ? src.w[1] : t == 2 ? src.w[2]
+                      : t == 3 ? src.w[3] : src.w[4];
           const int row = w * (kC / 4);
           v.row_lo = reinterpret_cast<const float4*>(p) + ((size_t)frame * h + yt.x) * row +
                      head.x * (kC / 4);
@@ -587,8 +591,8 @@ extern "C" int echoflow_decoder_heads_column_budget(void) { return kColumnBudget
 // tile (1..64); n_cols_max: columns of the column buffer, at most the
 // column budget.
 extern "C" int echoflow_decoder_heads(
-    const void* p0, const void* p1, const void* p2, const void* p3,
-    int h0, int w0, int h1, int w1, int h2, int w2_, int h3, int w3,
+    const void* p0, const void* p1, const void* p2, const void* p3, const void* p4,
+    int h0, int w0, int h1, int w1, int h2, int w2_, int h3, int w3, int h4, int w4,
     int n_src, int n_cols_max, int tile_w,
     const void* y_tab, const void* x_plan,
     const void* b1, const void* w2, const void* b2, const void* ws,
@@ -603,9 +607,9 @@ extern "C" int echoflow_decoder_heads(
   if (n_frames * h_out * ((w_out + tile_w - 1) / tile_w) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Sources src;
-  const void* ps[kMaxSrc] = {p0, p1, p2, p3};
-  const int hs[kMaxSrc] = {h0, h1, h2, h3};
-  const int wsz[kMaxSrc] = {w0, w1, w2_, w3};
+  const void* ps[kMaxSrc] = {p0, p1, p2, p3, p4};
+  const int hs[kMaxSrc] = {h0, h1, h2, h3, h4};
+  const int wsz[kMaxSrc] = {w0, w1, w2_, w3, w4};
   for (int r = 0; r < kMaxSrc; ++r) {
     src.p[r] = static_cast<const float*>(ps[r]);
     src.h[r] = hs[r];

@@ -72,7 +72,7 @@ import torch
 
 from echoflow_torch.models.fast_forward import folded_forward
 from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
-from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet
+from echoflow_torch.models.r2plus1d import backbone_of, motion_seg_net
 from echoflow_torch.ops.fusion import fuse_frames, softmax_mean_fuse
 from echoflow_torch.ops.normalize import zeroone_normalize
 from echoflow_torch.ops.resize import _linear_resize_matrix_np, resize_linear
@@ -224,8 +224,9 @@ class VideoSegmenter:
 
     Parameters
     ----------
-    variables : the port's state dict for `R2Plus1DMotionSegNet` (unfolded,
-        or folded: a state dict without BN statistics is taken as folded)
+    variables : the port's state dict of the network over either backbone
+        (`models/r2plus1d.motion_seg_net`; its keys name it), unfolded, or
+        folded: a state dict without BN statistics is taken as folded
     device : "cuda" (default) or "cpu". A CUDA device that is not there
         raises; the engine never falls back to the CPU by itself.
     devices : optional list of devices of one type (echoflow's `mesh`): the
@@ -287,7 +288,7 @@ class VideoSegmenter:
         if self.decoder == "kernel" and not folded:
             raise ValueError("VideoSegmenter: decoder='kernel' needs a folded model; "
                              "pass fold_bn=True or decoder='model'")
-        model = R2Plus1DMotionSegNet(folded=folded)
+        model = motion_seg_net(backbone_of(state), folded=folded)
         model.load_state_dict(state)
         model.eval().requires_grad_(False)
         if self.decoder == "model":
@@ -295,7 +296,7 @@ class VideoSegmenter:
             # model keeps fp32 BatchNorm statistics).
             model.compute_dtype = self.dtype
         else:
-            model.r2plus1d_model.to(bdt)
+            model.backbone.to(bdt)
         # One replica per distinct device; the first device's is `_model`.
         self._replicas = {dev: copy.deepcopy(model).to(dev) for dev in self._devices
                           if dev != self.device}

@@ -1,7 +1,8 @@
 """Inference fast path: folded forward with the decoder-tail kernel (port of
 `echoflow.models.fast_forward`).
 
-`folded_forward` computes what `R2Plus1DMotionSegNet(folded=True)` computes
+`folded_forward` computes what a folded `MotionSegNet` (`R2Plus1DMotionSegNet`
+or `CSNMotionSegNet` with `folded=True`) computes
 (backbone, same-resolution-merged tap projections, decoder, heads), but
 runs the decoder tail through `ops/decoder_heads.decoder_heads`: the CUDA
 kernel on the card, its plain version on the CPU. `plain_decoder` is the
@@ -16,18 +17,18 @@ from echoflow_torch.ops.decoder_heads import decoder_heads
 from echoflow_torch.ops.resize import linear_resize_matrix, resize_linear
 from echoflow_torch.utils.profiling import span
 
-TAP_CHANNELS = (64, 64, 128, 256, 512)
-
 
 def merged_projections(taps, comb1_weight: torch.Tensor, dtype=torch.float32):
-    """Project each (N, C, T, H, W) tap with its slice of the (1024 -> 64)
-    comb1 weight to a channels-last (N, T, H, W, 64) projection, and sum
-    projections that share a resolution (exact: upsampling is linear).
-    Returns the projections ordered by first appearance."""
-    w = comb1_weight.reshape(comb1_weight.shape[0], -1).to(dtype)   # (64, 1024)
+    """Project each (N, C, T, H, W) tap with its slice of the comb1 weight
+    (sum of the taps' C -> 64; the backbone's `tap_channels`) to a
+    channels-last (N, T, H, W, 64) projection, and sum projections that
+    share a resolution (exact: upsampling is linear). Returns the
+    projections ordered by first appearance."""
+    w = comb1_weight.reshape(comb1_weight.shape[0], -1).to(dtype)   # (64, sum of C)
     projs: dict = {}
     offset = 0
-    for tap, ch in zip(taps, TAP_CHANNELS):
+    for tap in taps:
+        ch = tap.shape[1]
         proj = torch.einsum("ncthw,dc->nthwd", tap.to(dtype), w[:, offset:offset + ch])
         shape = tuple(tap.shape[2:5])
         projs[shape] = proj if shape not in projs else projs[shape] + proj
@@ -56,7 +57,7 @@ def folded_forward(model, video, *, dtype=torch.float32, with_motion=True):
     if not model.folded:
         raise ValueError("folded_forward needs a folded model (models/fold_bn.py)")
     t, h, w = video.shape[2:]
-    backbone = model.r2plus1d_model
+    backbone = model.backbone
     with span("backbone", device=video.device):
         taps = backbone(video.to(backbone.stem[0].weight.dtype))
     with span("projections", device=video.device):

@@ -202,12 +202,13 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return conv_ops.convolution(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+        return conv_ops.convolution(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                                    groups=self.groups)
 
 
-def _bn(ch: int, folded: bool) -> nn.Module:
+def _bn(ch: int, folded: bool, eps: float = BN_EPS, momentum: float = 0.1) -> nn.Module:
     # torch momentum 0.1 is flax momentum 0.9 (running-stat update weight).
-    return nn.Identity() if folded else BatchNorm3d(ch, eps=BN_EPS, momentum=0.1)
+    return nn.Identity() if folded else BatchNorm3d(ch, eps=eps, momentum=momentum)
 
 
 def _conv2plus1d(cin, cout, mid, stride, folded):
@@ -245,7 +246,9 @@ class BasicBlock(nn.Module):
 
 class R2Plus1DBackbone(nn.Module):
     """Stem + 4 stages (+ the unused Kinetics fc); `forward` returns the
-    five tap feature maps, each (N, C, T, H, W)."""
+    five tap feature maps, each (N, C, T, H, W), of `tap_channels`."""
+
+    tap_channels = (64, 64, 128, 256, 512)
 
     def __init__(self, folded: bool = False):
         super().__init__()
@@ -270,12 +273,18 @@ class R2Plus1DBackbone(nn.Module):
         return taps
 
 
-class R2Plus1DMotionSegNet(nn.Module):
-    """Full MotionNet. Public contract matches the reference:
+class MotionSegNet(nn.Module):
+    """CLAS-FV's decoder and heads over a backbone's taps. Public contract
+    matches the reference:
 
         seg, motion = model(video)
         video (N, 3, T, H, W) float; seg (N, 2, T, H, W) float32;
         motion (N, 4, T, H, W) float32, tanh-bounded.
+
+    A subclass makes its backbone (a module whose forward returns its tap
+    feature maps, with their widths in `tap_channels`), names it
+    `backbone`, then calls `_add_decoder`: comb1 reads the taps' widths
+    summed.
 
     The forward computes in `compute_dtype`, or, when that is None, in the
     dtype of the module's parameters. `compute_dtype=torch.bfloat16` on
@@ -291,11 +300,8 @@ class R2Plus1DMotionSegNet(nn.Module):
     output_dtype = torch.float32
     compute_dtype = None
 
-    def __init__(self, folded: bool = False):
-        super().__init__()
-        self.folded = folded
-        self.r2plus1d_model = R2Plus1DBackbone(folded)
-        self.comb_1_layer = Conv3d(1024, 64, 1)
+    def _add_decoder(self, folded: bool):
+        self.comb_1_layer = Conv3d(sum(self.backbone.tap_channels), 64, 1)
         self.comb_batch_norm_1 = _bn(64, folded)
         self.comb_2_layer = Conv3d(64, 64, 1)
         self.comb_batch_norm_2 = _bn(64, folded)
@@ -305,7 +311,7 @@ class R2Plus1DMotionSegNet(nn.Module):
     def forward(self, video):
         t, h, w = video.shape[2:]
         dtype = self.compute_dtype or self.comb_1_layer.weight.dtype
-        taps = self.r2plus1d_model(video.to(dtype))
+        taps = self.backbone(video.to(dtype))
         acc = None
         for proj in merged_projections(taps, self.comb_1_layer.weight, dtype):
             up = trilinear_resize(proj, (t, h, w), align_corners=True, axes=(1, 2, 3))
@@ -319,13 +325,28 @@ class R2Plus1DMotionSegNet(nn.Module):
         return seg.to(self.output_dtype), motion.to(self.output_dtype)
 
 
+class R2Plus1DMotionSegNet(MotionSegNet):
+    """CLAS-FV: the decoder and heads over R(2+1)D-18 (`MotionSegNet`)."""
+
+    def __init__(self, folded: bool = False):
+        super().__init__()
+        self.folded = folded
+        self.r2plus1d_model = R2Plus1DBackbone(folded)
+        self._add_decoder(folded)
+
+    @property
+    def backbone(self):
+        return self.r2plus1d_model
+
+
 @torch.no_grad()
-def init_weights(model: R2Plus1DMotionSegNet, generator: torch.Generator) -> R2Plus1DMotionSegNet:
+def init_weights(model: MotionSegNet, generator: torch.Generator) -> MotionSegNet:
     """The reference's initialization, drawn from `generator` (a CPU
     generator, so a seed gives the same weights on every machine):
-    Kaiming-normal fan_out for every conv, the motion head N(0, sqrt(1e-5)),
-    comb1 uniform with variance 1/(3 fan_in) and zero bias, BNs identity,
-    the unused fc zero."""
+    Kaiming-normal fan_out for every conv (out channels x kernel volume,
+    as torch counts it for a grouped conv too), the motion head
+    N(0, sqrt(1e-5)), comb1 uniform with variance 1/(3 fan_in) and zero
+    bias, BNs identity, the unused fc zero."""
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
 
@@ -341,15 +362,45 @@ def init_weights(model: R2Plus1DMotionSegNet, generator: torch.Generator) -> R2P
     model.comb_1_layer.weight.copy_(
         (torch.rand(model.comb_1_layer.weight.shape, generator=generator) * 2 - 1) * bound)
     normal_(model.motion_head.weight, math.sqrt(1e-5))
-    model.r2plus1d_model.fc.weight.zero_()
-    model.r2plus1d_model.fc.bias.zero_()
+    model.backbone.fc.weight.zero_()
+    model.backbone.fc.bias.zero_()
     return model
 
 
-def create_model(seed: int = 0) -> R2Plus1DMotionSegNet:
-    """A seeded, initialized (unfolded) MotionNet on the CPU, in eval mode."""
+BACKBONES = ("r2plus1d_18", "ir_csn_152")
+# The attribute each backbone's module has in the network, which names its
+# keys in a state dict.
+_BACKBONE_MODULES = {"r2plus1d_model": "r2plus1d_18", "ir_csn_model": "ir_csn_152"}
+
+
+def backbone_of(state_dict) -> str:
+    """The backbone (one of BACKBONES) of a state dict of `motion_seg_net`'s
+    network, folded or not, by its keys (`r2plus1d_model.*`,
+    `ir_csn_model.*`). Raises ValueError for one that names neither."""
+    for key in state_dict:
+        name = _BACKBONE_MODULES.get(key.split(".", 1)[0])
+        if name is not None:
+            return name
+    raise ValueError(f"state dict names no backbone (keys under one of {list(_BACKBONE_MODULES)})")
+
+
+def motion_seg_net(backbone: str = "r2plus1d_18", folded: bool = False) -> MotionSegNet:
+    """CLAS-FV's network over `backbone` (one of BACKBONES): R(2+1)D-18, as
+    published, or ir-CSN-152 (`models/csn.py`)."""
+    if backbone == "r2plus1d_18":
+        return R2Plus1DMotionSegNet(folded)
+    if backbone == "ir_csn_152":
+        from echoflow_torch.models.csn import CSNMotionSegNet
+
+        return CSNMotionSegNet(folded=folded)
+    raise ValueError(f"unknown backbone {backbone!r}; one of {BACKBONES}")
+
+
+def create_model(seed: int = 0, backbone: str = "r2plus1d_18") -> MotionSegNet:
+    """A seeded, initialized (unfolded) MotionNet over `backbone` on the
+    CPU, in eval mode."""
     gen = torch.Generator().manual_seed(seed)
-    return init_weights(R2Plus1DMotionSegNet(), gen).eval()
+    return init_weights(motion_seg_net(backbone), gen).eval()
 
 
 def param_count(model: nn.Module) -> int:

@@ -35,6 +35,12 @@ would let the choice, and so the bits, vary between processes):
   the decoder's full-resolution output) to a grouped direct kernel that
   spreads the work over the C_out x C_in outputs alone, 25 ms each.
 
+Of grouped convolutions (`groups`) the depthwise ones alone are taken (one
+input and one output channel a group, as ir-CSN's 3x3x3 convs), a class of
+their own ("dw" in `geometry_class`) on cuDNN's routes; the forward and
+each backward route of one run in the span `conv.depthwise`
+(`utils/profiling.span`).
+
 The bias gradient is a sum over fixed dimensions. Everything else (the
 CPU, bf16, inference under `no_grad`) calls the plain functional conv.
 Every route is made of allocations from the caching allocator and
@@ -50,6 +56,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from echoflow_torch.utils.profiling import span
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
@@ -187,41 +195,50 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic = before
 
 
-def cudnn_grads(x, weight, dy, stride, padding, transposed, mask, deterministic):
+def cudnn_grads(x, weight, dy, stride, padding, transposed, mask, deterministic, groups=1):
     """`aten.convolution_backward` for the gradients in `mask` (input,
     weight, bias), with cuDNN's deterministic engines if `deterministic`
-    (`deterministic_cudnn`)."""
+    (`deterministic_cudnn`). A depthwise 3-D conv runs aten's own
+    `conv_depthwise3d` backward kernels there, whichever flag is set."""
     nd = len(stride)
     args = (dy, x, weight, None, list(stride), list(padding), [1] * nd, transposed,
-            [0] * nd, 1, list(mask))
+            [0] * nd, groups, list(mask))
     with deterministic_cudnn() if deterministic else contextlib.nullcontext():
         return torch.ops.aten.convolution_backward(*args)
 
 
-def conv_forward(x, weight, bias, stride, padding, transposed):
+def conv_forward(x, weight, bias, stride, padding, transposed, groups=1):
     """The functional conv. A transposed one on the card runs under cuDNN's
     deterministic engines: its forward is cuDNN's input-gradient engine,
     whose default gave other bits from call to call at the CAMUS SegNet's
     decoder (tests/test_torch_cuda.py)."""
     if not transposed:
-        return _CONV[len(stride)](x, weight, bias, stride=stride, padding=padding)
+        return _CONV[len(stride)](x, weight, bias, stride=stride, padding=padding,
+                                  groups=groups)
     with deterministic_cudnn() if x.is_cuda else contextlib.nullcontext():
         return _CONV_T[len(stride)](x, weight, bias, stride=stride, padding=padding)
 
 
-def geometry_class(weight_shape, stride, transposed):
+def is_depthwise(weight_shape, groups, transposed=False) -> bool:
+    """Whether a conv is depthwise: one input and one output channel a
+    group."""
+    return not transposed and groups > 1 and weight_shape[1] == 1 and weight_shape[0] == groups
+
+
+def geometry_class(weight_shape, stride, transposed, groups=1):
     """The class of a convolution that picks its routes: its kernel's
     shape pattern and its stride, e.g. "(1,3,3)/(1,2,2)", with "T" before
-    a transposed one."""
+    a transposed one and "dw" before a depthwise one."""
     k = ",".join(str(s) for s in weight_shape[2:])
-    return f"{'T' if transposed else ''}({k})/({','.join(str(s) for s in stride)})"
+    kind = "T" if transposed else "dw" if is_depthwise(weight_shape, groups) else ""
+    return f"{kind}({k})/({','.join(str(s) for s in stride)})"
 
 
 # The routes of each geometry class: (input gradient, weight gradient).
 # From `profile_torch.py --convs` on an NVIDIA H100 80GB HBM3 at 700 W:
 # milliseconds summed over the class's calls in one fp32 step (CLAS-FV at
 # 4 x 3 x 32 x 112 x 112; CAMUS at 4 x 1 x 64 x 64, its calls in a run of
-# three steps), cuDNN's default / its deterministic engine / the candidate
+# three steps; ir-CSN-152's step with `--conv-models csn`), cuDNN's default / its deterministic engine / the candidate
 # route ("subpixel" for dx, "gemm" for dW), "*" where the default engine
 # gave other bits in three calls on the same inputs. A class whose default
 # repeats keeps it; the others take their cheapest route that repeats.
@@ -238,6 +255,16 @@ ROUTES = {
     "(1,1,1)/(2,2,2)": ("cudnn", "gemm"),               # dx 0.32; dW 2.17 / 2.19 / 0.40
     "(1,1,1)/(1,1,1)": ("cudnn", "gemm"),               # dx 1.64; dW 54.32 / 53.78 / 1.27
     #                                                   (the heads 25.59 and 25.65 each)
+    # ir-CSN-152 under CLAS-FV (4 x 3 x 32 x 112 x 112; its 104 + 3
+    # pointwise convs are in the two classes above: dW 91.83* / 83.72 /
+    # 27.36 and 0.73 / 0.74 / 0.43, dx 11.13 and 0.56). The depthwise
+    # classes run aten's conv_depthwise3d kernels under either flag.
+    "(3,7,7)/(1,2,2)": ("cudnn_deterministic", "cudnn"),   # dx not in the step;
+    #                                                   dW 11.35 / 11.44 / 24.81
+    # Their candidates, a grouped sub-pixel dx and a batched-GEMM dW, read
+    # 7.26 and 61.72 ms, 6.27 and 4.52 ms, and are not kept.
+    "dw(3,3,3)/(1,1,1)": ("cudnn", "cudnn"),            # dx 2.38 / 2.49; dW 4.85 / 5.60
+    "dw(3,3,3)/(2,2,2)": ("cudnn", "cudnn"),            # dx 0.95 / 0.65; dW 0.31 / 0.33
     # The CAMUS trainer's SegNet and shape autoencoder.
     "(3,3)/(1,1)": ("cudnn_deterministic", "cudnn"),    # dx not in the step, as the
     #                                                   stem's; dW 0.23
@@ -250,21 +277,32 @@ ROUTES = {
 DEFAULT_ROUTE = ("cudnn_deterministic", "cudnn_deterministic")
 
 
-def _input_grad(route, x, weight, dy, stride, padding, transposed):
+def _input_grad(route, x, weight, dy, stride, padding, transposed, groups=1):
     if route == "subpixel":
         return input_grad_subpixel(dy, weight, stride, padding, x.shape[2:])
     return cudnn_grads(x, weight, dy, stride, padding, transposed, (True, False, False),
-                       route == "cudnn_deterministic")[0]
+                       route == "cudnn_deterministic", groups)[0]
 
 
-def _weight_grad(route, x, weight, dy, stride, padding, transposed):
+def _weight_grad(route, x, weight, dy, stride, padding, transposed, groups=1):
     if route == "gemm":
         # The weight gradient of conv_transpose(x, w) is that of conv(dy, w)
         # for the output gradient x.
         u, v = (dy, x) if transposed else (x, dy)
         return weight_grad_gemm(u, v, weight.shape[2:], stride, padding)
     return cudnn_grads(x, weight, dy, stride, padding, transposed, (False, True, False),
-                       route == "cudnn_deterministic")[1]
+                       route == "cudnn_deterministic", groups)[1]
+
+
+@contextlib.contextmanager
+def _depthwise_span(x, depthwise):
+    """The span `conv.depthwise` around one call of a depthwise conv;
+    nothing around any other conv."""
+    if not depthwise:
+        yield
+        return
+    with span("conv.depthwise", device=x.device):
+        yield
 
 
 class _RepeatableConv(torch.autograd.Function):
@@ -272,26 +310,29 @@ class _RepeatableConv(torch.autograd.Function):
     (`ROUTES`); see the module docstring."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, transposed):
+    def forward(ctx, x, weight, bias, stride, padding, transposed, groups=1):
         ctx.save_for_backward(x, weight)
-        ctx.conf = (stride, padding, transposed)
-        return conv_forward(x, weight, bias, stride, padding, transposed)
+        ctx.conf = (stride, padding, transposed, groups)
+        return conv_forward(x, weight, bias, stride, padding, transposed, groups)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        stride, padding, transposed = ctx.conf
-        dgrad, wgrad = ROUTES.get(geometry_class(weight.shape, stride, transposed),
+        stride, padding, transposed, groups = ctx.conf
+        dgrad, wgrad = ROUTES.get(geometry_class(weight.shape, stride, transposed, groups),
                                   DEFAULT_ROUTE)
+        depthwise = is_depthwise(weight.shape, groups, transposed)
         dy = dy.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _input_grad(dgrad, x, weight, dy, stride, padding, transposed)
+            with _depthwise_span(dy, depthwise):
+                dx = _input_grad(dgrad, x, weight, dy, stride, padding, transposed, groups)
         if ctx.needs_input_grad[1]:
-            dw = _weight_grad(wgrad, x, weight, dy, stride, padding, transposed)
+            with _depthwise_span(dy, depthwise):
+                dw = _weight_grad(wgrad, x, weight, dy, stride, padding, transposed, groups)
         if ctx.needs_input_grad[2]:
             db = dy.sum([0] + list(range(2, dy.dim())))
-        return dx, dw, db, None, None, None
+        return dx, dw, db, None, None, None, None
 
 
 def repeatable(x: torch.Tensor, weight: torch.Tensor) -> bool:
@@ -303,15 +344,19 @@ def repeatable(x: torch.Tensor, weight: torch.Tensor) -> bool:
             and x.is_cuda and x.dtype in (torch.float32, torch.float64))
 
 
-def convolution(x, weight, bias=None, stride=1, padding=0, transposed=False):
-    """`F.conv{1,2,3}d(x, weight, bias, stride, padding)` (or
-    `F.conv_transpose{1,2,3}d` when `transposed`; no dilation, one group,
-    no output padding) whose backward repeats bit for bit on the card
-    (`_RepeatableConv`); elsewhere the functional conv itself
-    (`conv_forward`)."""
+def convolution(x, weight, bias=None, stride=1, padding=0, transposed=False, groups=1):
+    """`F.conv{1,2,3}d(x, weight, bias, stride, padding, groups=groups)` (or
+    `F.conv_transpose{1,2,3}d` when `transposed`; no dilation, no output
+    padding; one group, or one a channel of a depthwise conv) whose
+    backward repeats bit for bit on the card (`_RepeatableConv`); elsewhere
+    the functional conv itself (`conv_forward`)."""
     nd = x.dim() - 2
     stride = (stride,) * nd if isinstance(stride, int) else tuple(stride)
     padding = (padding,) * nd if isinstance(padding, int) else tuple(padding)
-    if repeatable(x, weight):
-        return _RepeatableConv.apply(x, weight, bias, stride, padding, transposed)
-    return conv_forward(x, weight, bias, stride, padding, transposed)
+    depthwise = is_depthwise(weight.shape, groups, transposed)
+    if groups != 1 and not depthwise:
+        raise ValueError("convolution: groups must be 1, or the channels of a depthwise conv")
+    with _depthwise_span(x, depthwise):
+        if repeatable(x, weight):
+            return _RepeatableConv.apply(x, weight, bias, stride, padding, transposed, groups)
+        return conv_forward(x, weight, bias, stride, padding, transposed, groups)

@@ -37,7 +37,7 @@ from echoflow_torch.ops.resize import _linear_resize_matrix_np, trilinear_resize
 from echoflow_torch.utils.device import upload
 
 KERNEL_CHANNELS = 64   # the kernel is compiled for 64 -> 64 channels
-MAX_SOURCES = 4
+MAX_SOURCES = 5   # R(2+1)D-18 merges its five taps to four resolutions; ir-CSN-152 has five
 
 
 def reference_decoder_heads(projs, b1, w2, b2, ws, bs, wm=None, bm=None,
@@ -148,8 +148,8 @@ def _column_budget() -> int:
 def _kernel_fn():
     fn = _library().echoflow_decoder_heads
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([ptr] * 4 + [i32] * 11 + [ptr] * 2 + [ptr] * 7 + [ptr] * 2
-                   + [i32] * 5 + [ptr])
+    fn.argtypes = ([ptr] * MAX_SOURCES + [i32] * (2 * MAX_SOURCES + 3) + [ptr] * 2 + [ptr] * 7
+                   + [ptr] * 2 + [i32] * 5 + [ptr])
     fn.restype = ctypes.c_int
     return fn
 

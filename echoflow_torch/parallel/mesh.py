@@ -16,6 +16,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from echoflow_torch.utils.profiling import span
+
 
 def data_devices(num_devices: int | None = None, devices=None) -> list[torch.device]:
     """The devices of a data-parallel run (echoflow's `data_mesh`): `devices`
@@ -94,9 +96,12 @@ def average_gradients(flat: torch.Tensor, group) -> torch.Tensor:
     its mean over the ranks of `group`: one all-reduce, which does not wait
     for the device and which a CUDA graph of the step holds as a node. Each
     rank's part is divided by the world size before the sum, as
-    DistributedDataParallel divides its buckets."""
-    flat.div_(dist.get_world_size(group))
-    dist.all_reduce(flat, group=group)
+    DistributedDataParallel divides its buckets. Both run in the span
+    `dp.all_reduce` (`utils/profiling.span`), with device stamps on a
+    card."""
+    with span("dp.all_reduce", device=flat.device):
+        flat.div_(dist.get_world_size(group))
+        dist.all_reduce(flat, group=group)
     return flat
 
 

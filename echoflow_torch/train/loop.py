@@ -66,6 +66,9 @@ class TrainConfig:
     # the optimization trajectory (echoflow's end-metric study,
     # benchmarks/bf16_train_study.json: ES Dice 0.0056 below fp32).
     compute_dtype: torch.dtype = torch.float32
+    # The network's backbone: "r2plus1d_18" (CLAS-FV as published) or
+    # "ir_csn_152" (`models/r2plus1d.motion_seg_net`).
+    backbone: str = "r2plus1d_18"
 
 
 @dataclass
@@ -112,8 +115,8 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
 
 
 def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState:
-    """A seeded full-width MotionNet (`create_model`'s init) in train mode on
-    `device`, with its optimizer and a generator on the same device. The
+    """A seeded full-width MotionNet over `cfg.backbone` (`create_model`'s
+    init) in train mode on `device`, with its optimizer and a generator on the same device. The
     default device is the card; without one this raises. The model
     computes in `cfg.compute_dtype` (fp32 leaves it to the parameters'
     dtype, so a caller may cast the model to float64); its parameters
@@ -126,7 +129,7 @@ def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState
                                "to train on the CPU)")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = create_model(seed=seed).to(device).train()
+    model = create_model(seed=seed, backbone=cfg.backbone).to(device).train()
     if cfg.compute_dtype != torch.float32:
         model.compute_dtype = cfg.compute_dtype
     generator = torch.Generator(device=device).manual_seed(seed + 1)

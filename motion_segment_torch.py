@@ -49,6 +49,11 @@ def parse_args(argv=None):
     ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("-c", "--content", required=False, type=str, default="binary",
                     help="gif, binary, binary_video, all (comma-separated)")
+    ap.add_argument("--backbone", required=False, type=str, default="r2plus1d_18",
+                    choices=["r2plus1d_18", "ir_csn_152"],
+                    help="the backbone of the seeded network run when no weights are "
+                         "found: CLAS-FV's R(2+1)D-18 (default) or ir-CSN-152 under the "
+                         "same decoder (a checkpoint's keys name its own)")
     ap.add_argument("--height", required=False, type=int, default=112)
     ap.add_argument("--width", required=False, type=int, default=112)
     ap.add_argument("--precision", required=False, type=str, default="fp32",
@@ -124,10 +129,10 @@ def load_and_preprocess_video(path: str, height: int = 112, width: int = 112):
     return zeroone_normalizer(video)
 
 
-def load_weights(path: str) -> dict:
+def load_weights(path: str, backbone: str = "r2plus1d_18") -> dict:
     """The port's state dict from a `.pth` (reference or port checkpoint)
-    or an echoflow `.pkl`; seeded random weights, with a warning, when the
-    file is missing."""
+    or an echoflow `.pkl`; seeded random weights of the network over
+    `backbone`, with a warning, when the file is missing."""
     from echoflow_torch.models.r2plus1d import create_model
     from echoflow_torch.train.checkpoint import load_model_variables
 
@@ -135,7 +140,7 @@ def load_weights(path: str) -> dict:
         return load_model_variables(path)
     print(f"WARNING: weights not found at {path}; "
           "running with randomly initialized weights.", file=sys.stderr)
-    return create_model(seed=0).state_dict()
+    return create_model(seed=0, backbone=backbone).state_dict()
 
 
 def run(video, args):
@@ -148,14 +153,16 @@ def run(video, args):
     from echoflow_torch.infer.ef import compute_ef_using_putative_clips
     from echoflow_torch.infer.pipeline import VideoSegmenter
     from echoflow_torch.models.fold_bn import is_folded
-    from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet, param_count
+    from echoflow_torch.models.r2plus1d import backbone_of, motion_seg_net, param_count
 
     device = resolve_device(args.device)
-    state = load_weights(args.model)
+    state = load_weights(args.model, args.backbone)
+    backbone = backbone_of(state)   # a checkpoint's own, whatever --backbone says
     if args.verbose:
-        model = R2Plus1DMotionSegNet(folded=is_folded(state))
+        model = motion_seg_net(backbone, folded=is_folded(state))
         model.load_state_dict(state)
-        print(f"R2+1D MotionNet has {param_count(model)} parameters.")
+        name = {"r2plus1d_18": "R2+1D", "ir_csn_152": "ir-CSN-152"}[backbone]
+        print(f"{name} MotionNet has {param_count(model)} parameters.")
 
     segmenter = VideoSegmenter(state, device=device, **precision_policy(args.precision))
     segmentations = segmenter.segment_video(

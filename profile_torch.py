@@ -4,7 +4,7 @@
     python3 profile_torch.py [--videos 3] [--dtype float32|bfloat16] [--out PATH]
     python3 profile_torch.py --train [--compute-dtype fp32|bf16] [--remat] [--out PATH]
     python3 profile_torch.py --clips 8 [--out PATH]
-    python3 profile_torch.py --convs [--out PATH]
+    python3 profile_torch.py --convs [--conv-models clasfv camus csn] [--out PATH]
     python3 profile_torch.py CHECKPOINT [CHECKPOINT ...] [--out PATH]
 
 Runs the engine of chip_smoke.py (full-width R(2+1)D-18, seeded weights,
@@ -46,18 +46,22 @@ on their motion with K2's launches by device time.
 With --convs it times the backward of every distinct convolution of the
 fp32 train steps, one by one at the shape the step runs it: the
 convolutions of one full-width fused CLAS-FV step (batch 4 x 3 x 32 x
-112 x 112) and of the CAMUS trainer (`train_camus_torch.main --synthetic
---epochs 1 --acnn`), each recorded where `ops/conv.convolution` takes its
-repeatable backward. A geometry is (input shape, weight shape, stride,
-padding, transposed). For each, the input gradient (where the step wants
+112 x 112), of the CAMUS trainer (`train_camus_torch.main --synthetic
+--epochs 1 --acnn`) and of one fused step of CLAS-FV over ir-CSN-152 at
+CLAS-FV's batch ("csn"), each recorded where `ops/conv.convolution` takes
+its repeatable backward; `--conv-models` names the models to record (all
+three by default). A geometry is (input shape, weight shape, stride,
+padding, transposed, groups). For each, the input gradient (where the step wants
 it), the weight gradient and the forward apart, on seeded inputs: whether
 cuDNN's default engine gives the same bits in three calls, its time (CUDA
 events, median of 10), the same with cuDNN's deterministic engines
 (`ops/conv.deterministic_cudnn`), and each candidate route of `ops/conv.py`
-("subpixel" for an input gradient, "gemm" for a weight gradient: time,
-same bits, relative L2 from the deterministic engine's result), beside
+("subpixel" for an input gradient, "gemm" for a weight gradient, of a
+conv of one group: time, same bits, relative L2 from the deterministic
+engine's result), beside
 the routes `ops/conv.ROUTES` takes for the geometry's class. `sums_ms`
-adds each column over a CLAS-FV step's convolutions, each geometry times
+adds each column over the first model's step's convolutions (`sums_of`;
+CLAS-FV's by default), each geometry times
 its calls in the step; `*.taken` is the routes that `ROUTES` takes.
 `by_class_ms` adds them by model and geometry class, with the calls whose
 default engine gave other bits (`calls_apart`).
@@ -378,45 +382,57 @@ CONV_REPS = 10       # timed calls of each backward (median)
 CONV_REPEATS = 3     # calls whose bits are compared
 
 
-def conv_geometries():
+CONV_MODELS = ("clasfv", "camus", "csn")
+
+
+def conv_geometries(models=CONV_MODELS):
     """The convolutions that take `ops/conv.convolution`'s repeatable
-    backward in one fp32 CLAS-FV train step at full width and in the CAMUS
-    trainer with `--acnn`, recorded as they run: {key: row}, key (model,
-    input shape, weight shape, stride, padding, transposed), the row with
-    the calls seen and whether the input gradient is wanted."""
+    backward in one fp32 CLAS-FV train step at full width, in the CAMUS
+    trainer with `--acnn` and in one fp32 step of CLAS-FV over ir-CSN-152,
+    those of `models`, recorded as they run: {key: row}, key (model, input
+    shape, weight shape, stride, padding, transposed, groups), the row
+    with the calls seen and whether the input gradient is wanted."""
     import train_camus_torch
     from echoflow_torch.ops import conv as conv_ops
     from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_train_step,
                                            prefetch_to_device)
     from train_clasfv_torch import synthetic_batches
 
-    seen, model = {}, ["clasfv"]
+    seen, model = {}, [None]
     plain = conv_ops.convolution
 
-    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False):
+    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False, groups=1):
         if conv_ops.repeatable(x, weight):
             nd = x.dim() - 2
             key = (model[0], tuple(x.shape), tuple(weight.shape),
                    (stride,) * nd if isinstance(stride, int) else tuple(stride),
-                   (padding,) * nd if isinstance(padding, int) else tuple(padding), transposed)
+                   (padding,) * nd if isinstance(padding, int) else tuple(padding), transposed,
+                   groups)
             row = seen.setdefault(key, dict(calls=0, wants_input_grad=False,
                                              bias=bias is not None))
             row["calls"] += 1
             row["wants_input_grad"] |= x.requires_grad
-        return plain(x, weight, bias, stride, padding, transposed)
+        return plain(x, weight, bias, stride, padding, transposed, groups)
 
-    conv_ops.convolution = recording
-    try:
-        cfg = TrainConfig()
+    def clasfv_step(backbone):
+        cfg = TrainConfig(backbone=backbone)
         state = create_train_state(0, cfg, device="cuda")
         batch = next(iter(prefetch_to_device(
             synthetic_batches(cfg.batch_size, cfg.clip_length, cfg.image_size[0], 1, seed=0),
             "cuda")))
         make_train_step(fused_ota=True)(state, batch)
         torch.cuda.synchronize()
-        del state
-        model[0] = "camus"
-        train_camus_torch.main(["--synthetic", "--epochs", "1", "--acnn", "--device", "cuda"])
+        del state, batch
+        torch.cuda.empty_cache()
+
+    conv_ops.convolution = recording
+    try:
+        for model[0] in models:
+            if model[0] == "camus":
+                train_camus_torch.main(["--synthetic", "--epochs", "1", "--acnn", "--device",
+                                        "cuda"])
+            else:
+                clasfv_step("ir_csn_152" if model[0] == "csn" else "r2plus1d_18")
     finally:
         conv_ops.convolution = plain
     torch.cuda.empty_cache()
@@ -447,7 +463,7 @@ def _measure(fn, reference=None):
     return row, outs[0]
 
 
-def profile_convs(out_path=None):
+def profile_convs(out_path=None, models=CONV_MODELS):
     """`--convs`: see the module docstring."""
     from echoflow_torch.ops import conv as C
 
@@ -455,45 +471,48 @@ def profile_convs(out_path=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
-    for (model, xs, ws, stride, padding, transposed), seen in conv_geometries().items():
+    for (model, xs, ws, stride, padding, transposed, groups), seen in \
+            conv_geometries(models).items():
         nd = len(stride)
         x = torch.randn(xs, device="cuda", generator=g)
         fan_in = ws[0 if transposed else 1] * int(np.prod(ws[2:]))
         w = torch.randn(ws, device="cuda", generator=g) * (2.0 / fan_in) ** 0.5
         fwd = (C._CONV_T if transposed else C._CONV)[nd]
-        dy = torch.randn_like(fwd(x, w, stride=stride, padding=padding))
+        kw = {} if transposed else {"groups": groups}
+        dy = torch.randn_like(fwd(x, w, stride=stride, padding=padding, **kw))
         flop = 2 * (x if transposed else dy).numel() // (x if transposed else dy).shape[1] \
             * ws[0] * ws[1] * int(np.prod(ws[2:]))
         row = dict(model=model, input=list(xs), weight=list(ws), stride=list(stride),
-                   padding=list(padding), transposed=transposed,
-                   geometry_class=C.geometry_class(ws, stride, transposed), gflop=flop / 1e9,
-                   **seen)
+                   padding=list(padding), transposed=transposed, groups=groups,
+                   geometry_class=C.geometry_class(ws, stride, transposed, groups),
+                   gflop=flop / 1e9, **seen)
 
         def grads(mask, det):
             i = mask.index(True)
-            return lambda: C.cudnn_grads(x, w, dy, stride, padding, transposed, mask, det)[i]
+            return lambda: C.cudnn_grads(x, w, dy, stride, padding, transposed, mask, det,
+                                         groups)[i]
 
         # The forward's bits too: a transposed conv's forward is an
         # input-gradient engine (`ops/conv.conv_forward`).
         parts = {"forward": dict(default=_measure(lambda: fwd(x, w, stride=stride,
-                                                              padding=padding))[0])}
+                                                              padding=padding, **kw))[0])}
         if transposed:
             parts["forward"]["cudnn_deterministic"] = _measure(
                 lambda: C.conv_forward(x, w, None, stride, padding, True))[0]
         if seen["wants_input_grad"]:
             mask = (True, False, False)
             det, ref = _measure(grads(mask, True))
-            routes = {} if transposed else {"subpixel": lambda: C.input_grad_subpixel(
-                dy, w, stride, padding, xs[2:])}
+            routes = {} if transposed or groups > 1 else {
+                "subpixel": lambda: C.input_grad_subpixel(dy, w, stride, padding, xs[2:])}
             parts["input_grad"] = dict(default=_measure(grads(mask, False), ref)[0],
                                        cudnn_deterministic=det,
                                        **{k: _measure(f, ref)[0] for k, f in routes.items()})
         mask = (False, True, False)
         det, ref = _measure(grads(mask, True))
-        gemm = _measure(lambda: C._weight_grad("gemm", x, w, dy, stride, padding, transposed),
-                        ref)[0]
+        gemm = {} if groups > 1 else {"gemm": _measure(lambda: C._weight_grad(
+            "gemm", x, w, dy, stride, padding, transposed), ref)[0]}
         parts["weight_grad"] = dict(default=_measure(grads(mask, False), ref)[0],
-                                    cudnn_deterministic=det, gemm=gemm)
+                                    cudnn_deterministic=det, **gemm)
         routes = C.ROUTES.get(row["geometry_class"], C.DEFAULT_ROUTE)
         row["routes"] = dict(zip(("input_grad", "weight_grad"), routes))
         row.update(parts)
@@ -514,11 +533,12 @@ def profile_convs(out_path=None):
             cells["calls_apart"] += row["calls"] * (not row[part]["default"]["same_bits"])
             for route, r in list(row[part].items()) + [("taken", row[part][taken])]:
                 cells[route] = cells.get(route, 0.0) + row["calls"] * r["ms"]
-                if row["model"] == "clasfv":
+                if row["model"] == models[0]:
                     key = f"{part}.{route}"
                     sums[key] = sums.get(key, 0.0) + row["calls"] * r["ms"]
     result = {"card": nvidia_smi_line(), "mode": "convs", "geometries": len(rows),
-              "clasfv_calls": sum(r["calls"] for r in rows if r["model"] == "clasfv"),
+              "sums_of": models[0],
+              "calls": sum(r["calls"] for r in rows if r["model"] == models[0]),
               "sums_ms": sums, "by_class_ms": by_class, "rows": rows}
     print(json.dumps({k: v for k, v in result.items() if k != "rows"}))
     if out_path:
@@ -543,13 +563,16 @@ def main():
                          "and rollouts instead")
     ap.add_argument("--convs", action="store_true",
                     help="time the fp32 train steps' convolution backwards one by one instead")
+    ap.add_argument("--conv-models", nargs="+", choices=CONV_MODELS, default=CONV_MODELS,
+                    help="with --convs: the models whose convolutions are recorded "
+                         "(sums_ms adds the first's)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs an NVIDIA GPU")
     _build.build_all()
     if args.convs:
-        return profile_convs(args.out)
+        return profile_convs(args.out, tuple(args.conv_models))
     if args.checkpoints:
         return evaluate_checkpoints(args.checkpoints, args.out)
     if args.train:

@@ -33,8 +33,17 @@ GEOMETRIES = [
     ("(3,3)/(2,2)", (2, 4, 13, 12), (6, 4, 3, 3), (2, 2), (0, 0), False),
     ("T(3,3)/(2,2)", (2, 6, 5, 4), (6, 4, 3, 3), (2, 2), (0, 0), True),
     ("(1,1)/(1,1)", (2, 6, 8, 7), (3, 6, 1, 1), (1, 1), (0, 0), False),
+    # ir-CSN-152's stem (its depthwise classes are in GROUPED).
+    ("(3,7,7)/(1,2,2)", (2, 3, 5, 15, 14), (5, 3, 3, 7, 7), (1, 2, 2), (1, 3, 3), False),
 ]
 IDS = [g[0] for g in GEOMETRIES]
+# (class, input shape, weight shape, stride, padding, groups): ir-CSN-152's
+# depthwise 3x3x3 convs, at odd sizes where the stride meets them.
+GROUPED = [
+    ("dw(3,3,3)/(1,1,1)", (2, 6, 5, 7, 6), (6, 1, 3, 3, 3), (1, 1, 1), (1, 1, 1), 6),
+    ("dw(3,3,3)/(2,2,2)", (2, 6, 5, 7, 6), (6, 1, 3, 3, 3), (2, 2, 2), (1, 1, 1), 6),
+]
+GROUPED_IDS = [g[0] for g in GROUPED]
 # fp32 on both sides, summed in another order (the routes' GEMMs and
 # forward convs against the CPU's backward kernels): relative L2 at these
 # sizes 1e-7 to 4e-7; 2e-7 to 8e-7 at the full shapes on an H100
@@ -43,14 +52,14 @@ FP32_REL = 1e-5
 FP64_REL = 1e-12
 
 
-def _inputs(xs, ws, stride, padding, transposed, dtype, seed=0):
+def _inputs(xs, ws, stride, padding, transposed, dtype, seed=0, groups=1):
     rng = np.random.RandomState(seed)
     x = torch.tensor(rng.randn(*xs), dtype=dtype, requires_grad=True)
     w = torch.tensor(rng.randn(*ws) * 0.3, dtype=dtype, requires_grad=True)
     b = torch.tensor(rng.randn(ws[1] if transposed else ws[0]), dtype=dtype,
                      requires_grad=True)
     fn = (C._CONV_T if transposed else C._CONV)[len(stride)]
-    y = fn(x, w, b, stride=stride, padding=padding)
+    y = fn(x, w, b, stride=stride, padding=padding, **({"groups": groups} if groups > 1 else {}))
     dy = torch.tensor(rng.randn(*y.shape), dtype=dtype)
     want = torch.autograd.grad(y, (x, w, b), dy)
     return x, w, b, y, dy, want
@@ -105,31 +114,95 @@ def test_subpixel_input_grad_at_odd_and_even_sizes(geometry):
         assert _rel(dx, want[0]) <= FP64_REL, (cls, shape)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("geometry", GROUPED, ids=GROUPED_IDS)
+def test_grouped_routes_match_autograd_of_the_plain_conv(geometry, dtype):
+    """A depthwise conv through `_RepeatableConv` with its class's routes,
+    and through each of cuDNN's engines for dx and dW, against autograd
+    through `F.conv3d(..., groups=)`: float64 within 1e-12, fp32 within
+    FP32_REL; the forward the plain conv's, bit for bit."""
+    cls, xs, ws, stride, padding, groups = geometry
+    assert C.geometry_class(ws, stride, False, groups) == cls and cls in C.ROUTES
+    assert C.is_depthwise(ws, groups)
+    x, w, b, y, dy, want = _inputs(xs, ws, stride, padding, False, dtype, groups=groups)
+    xr, wr, br = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+    yr = C._RepeatableConv.apply(xr, wr, br, stride, padding, False, groups)
+    assert torch.equal(yr, y)
+    got = torch.autograd.grad(yr, (xr, wr, br), dy)
+    tol = FP64_REL if dtype == torch.float64 else FP32_REL
+    for name, g, r in zip(("dx", "dW", "db"), got, want):
+        assert g.shape == r.shape and _rel(g, r) <= tol, (name, _rel(g, r))
+    with torch.no_grad():
+        x, w = x.detach(), w.detach()
+        for route in ("cudnn", "cudnn_deterministic"):
+            dx = C._input_grad(route, x, w, dy, stride, padding, False, groups)
+            assert _rel(dx, want[0]) <= tol, route
+        for route in ("cudnn", "cudnn_deterministic"):
+            dw = C._weight_grad(route, x, w, dy, stride, padding, False, groups)
+            assert dw.shape == ws and _rel(dw, want[1]) <= tol, route
+
+
+def test_depthwise_convs_run_in_their_span_and_are_counted():
+    """A depthwise conv's forward and each of its backward routes open the
+    span `conv.depthwise` (its `record_function` range on the CPU), once a
+    call; any other conv opens none."""
+    from torch.profiler import profile
+
+    x = torch.randn(2, 4, 3, 6, 6, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(4, 1, 3, 3, 3, dtype=torch.float64, requires_grad=True)
+    with profile() as prof:
+        C.convolution(x, w, None, 2, 1, groups=4).sum().backward()
+        C.convolution(x, torch.randn(5, 4, 1, 1, 1, dtype=torch.float64), None, 1, 0).sum()
+    ranges = [e.name for e in prof.events() if e.name == "echoflow_torch.conv.depthwise"]
+    assert len(ranges) == 1
+    # The backward's routes, as `_RepeatableConv` runs them on the card.
+    xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
+    with profile() as prof:
+        C._RepeatableConv.apply(xr, wr, None, (2, 2, 2), (1, 1, 1), False, 4).sum().backward()
+    ranges = [e.name for e in prof.events() if e.name == "echoflow_torch.conv.depthwise"]
+    assert len(ranges) == 2
+
+
+@pytest.mark.parametrize("weight, groups", [((6, 2, 3, 3, 3), 3), ((6, 1, 3, 3, 3), 3)],
+                         ids=["two-channels-a-group", "six-outputs-of-three-groups"])
+def test_convolution_takes_no_grouped_conv_but_a_depthwise_one(weight, groups):
+    """A grouped conv that is not depthwise (one input and one output
+    channel a group) is refused before it runs: no route repeats it."""
+    x = torch.randn(2, 6 if weight[1] == 2 else 3, 3, 6, 6)
+    with pytest.raises(ValueError, match="depthwise"):
+        C.convolution(x, torch.randn(weight), None, 1, 1, groups=groups)
+
+
 def test_routes_cover_every_train_geometry():
-    """Every convolution of the CLAS-FV model's and the CAMUS nets'
-    training forwards, recorded as it runs, has its class in `ROUTES`
-    (none falls to `DEFAULT_ROUTE`), and its class is one of GEOMETRIES'."""
+    """Every convolution of the CLAS-FV model's (over R(2+1)D-18 and over
+    ir-CSN-152) and the CAMUS nets' training forwards, recorded as it
+    runs, has its class in `ROUTES` (none falls to `DEFAULT_ROUTE`), and
+    its class is one of GEOMETRIES' or GROUPED's."""
     import train_camus_torch
+    from echoflow_torch.models.csn import CSNMotionSegNet
     from echoflow_torch.models.r2plus1d import create_model
     from echoflow_torch.train.generic import ShapeAutoencoder
 
     seen = set()
     plain = C.convolution
 
-    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False):
+    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False, groups=1):
         nd = x.dim() - 2
         seen.add(C.geometry_class(weight.shape, (stride,) * nd if isinstance(stride, int)
-                                  else tuple(stride), transposed))
-        return plain(x, weight, bias, stride, padding, transposed)
+                                  else tuple(stride), transposed, groups))
+        return plain(x, weight, bias, stride, padding, transposed, groups)
 
     C.convolution = recording
     try:
         create_model(seed=0).train()(torch.zeros(2, 3, 4, 16, 16))
+        CSNMotionSegNet(stages=((1, 4, 1), (1, 8, 2), (1, 8, 2), (1, 8, 2))).train()(
+            torch.zeros(2, 3, 8, 32, 32))
         train_camus_torch.SegNet()(torch.zeros(1, 1, 16, 16))
         ShapeAutoencoder(image_size=(16, 16))(torch.zeros(1, 4, 16, 16))
     finally:
         C.convolution = plain
-    assert seen and seen <= set(C.ROUTES) and seen == set(IDS)
+    assert seen and seen <= set(C.ROUTES)
+    assert seen == set(IDS) | set(GROUPED_IDS[:2])
 
 
 def test_plain_conv_off_the_route(monkeypatch):
@@ -172,10 +245,10 @@ def test_model_layers_call_the_repeatable_convolution(monkeypatch):
     calls = []
     plain = C.convolution
 
-    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False):
+    def recording(x, weight, bias=None, stride=1, padding=0, transposed=False, groups=1):
         calls.append((tuple(weight.shape), tuple(stride) if not isinstance(stride, int)
                       else stride, padding, transposed))
-        return plain(x, weight, bias, stride, padding, transposed)
+        return plain(x, weight, bias, stride, padding, transposed, groups)
 
     monkeypatch.setattr(C, "convolution", recording)
     conv = Conv3d(4, 6, (1, 3, 3), (1, 2, 2), (0, 1, 1), bias=False)

@@ -51,10 +51,11 @@ def _check_k1(projs, w, out_hw, with_motion=True, align_corners=True):
 @pytest.mark.cuda
 @pytest.mark.parametrize("align_corners", [True, False])
 @pytest.mark.parametrize("with_motion", [True, False])
-@pytest.mark.parametrize("sizes", [(56, 28, 14, 7), (56, 7), (28,)])
+@pytest.mark.parametrize("sizes", [(56, 28, 14, 7), (56, 7), (28,), (56, 28, 14, 7, 4)])
 def test_decoder_heads_kernel_matches_plain(cuda, sizes, with_motion, align_corners):
     """The main path's source sizes with 2 clips (30 in the engine), and
-    fewer sources, with and without the motion head, both corner modes."""
+    fewer sources, and ir-CSN-152's five, with and without the motion
+    head, both corner modes."""
     projs, w = _k1_inputs(sizes)
     _check_k1(projs, w, (112, 112), with_motion, align_corners)
 
@@ -99,10 +100,13 @@ def test_decoder_heads_rejects_what_the_kernel_cannot_take(cuda):
 
 @pytest.mark.cuda
 def test_decoder_heads_rejects_a_fifth_source(cuda):
-    p = [torch.zeros(1, 2, s, s, 64, device="cuda") for s in (56, 28, 14, 7, 4)]
+    """The kernel takes at most five sources (ir-CSN-152's five tap
+    resolutions; R(2+1)D-18 merges its taps to four): a sixth, past the
+    fifth that it now takes, is refused before any launch."""
+    p = [torch.zeros(1, 2, s, s, 64, device="cuda") for s in (56, 28, 14, 7, 4, 2)]
     w = {k: torch.zeros(*s, device="cuda") for k, s in SHAPES.items()}
     before = decoder_heads.launches
-    with pytest.raises(ValueError, match="1..4 sources"):
+    with pytest.raises(ValueError, match="1..5 sources"):
         decoder_heads(p, **w, out_hw=(112, 112))
     assert decoder_heads.launches == before
 
@@ -1388,3 +1392,126 @@ def test_span_flag_off_writes_nothing(cuda):
     ring = profiling._TRACER.rings[x.device.index]
     assert ring.state.tolist() == [0, 2]
     torch.testing.assert_close(out, torch.tanh(x @ x) * 2.0)
+
+
+# ir-CSN-152's new geometry classes at the fp32 CSN step's shapes (batch 4 x
+# 3 x 32 x 112 x 112): the stem, and a depthwise 3x3x3 conv of each stage,
+# stride 1 and the stage's first (stride 2). (input, weight, stride, groups)
+CSN_CONVS = [
+    ((4, 3, 32, 112, 112), (64, 3, 3, 7, 7), (1, 2, 2), 1),
+    ((4, 64, 32, 28, 28), (64, 1, 3, 3, 3), (1, 1, 1), 64),
+    ((4, 128, 32, 28, 28), (128, 1, 3, 3, 3), (2, 2, 2), 128),
+    ((4, 128, 16, 14, 14), (128, 1, 3, 3, 3), (1, 1, 1), 128),
+    ((4, 256, 16, 14, 14), (256, 1, 3, 3, 3), (2, 2, 2), 256),
+    ((4, 256, 8, 7, 7), (256, 1, 3, 3, 3), (1, 1, 1), 256),
+    ((4, 512, 8, 7, 7), (512, 1, 3, 3, 3), (2, 2, 2), 512),
+    ((4, 512, 4, 4, 4), (512, 1, 3, 3, 3), (1, 1, 1), 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", CSN_CONVS,
+                         ids=["x".join(map(str, g[0])) + "-w" + "x".join(map(str, g[1]))
+                              + "-s" + "".join(map(str, g[2])) for g in CSN_CONVS])
+def test_csn_conv_classes_repeat_bitwise(cuda, geometry):
+    """Each of ir-CSN-152's new classes through `ops/conv.convolution` (its
+    `ROUTES`), fp32 with TF32 off: dx (the stem's is not wanted, as in the
+    step) and dW the same bits in three calls, and within the CPU test's
+    fp32 bar of autograd through the plain conv."""
+    from echoflow_torch.ops import conv as C
+
+    torch.backends.cudnn.allow_tf32 = False
+    xs, ws, stride, groups = geometry
+    padding = (1, 3, 3) if ws[2:] == (3, 7, 7) else (1, 1, 1)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(xs, device="cuda", generator=g).requires_grad_(groups > 1)
+    w = (torch.randn(ws, device="cuda", generator=g) * 0.05).requires_grad_()
+    y = torch.nn.functional.conv3d(x, w, None, stride, padding, 1, groups)
+    dy = torch.randn(y.shape, device="cuda", generator=g)
+    wanted = (x, w) if groups > 1 else (w,)
+    want = torch.autograd.grad(y, wanted, dy)
+    runs = []
+    for _ in range(3):
+        yr = C.convolution(x, w, None, stride, padding, groups=groups)
+        assert torch.equal(yr, y)
+        runs.append(torch.autograd.grad(yr, wanted, dy))
+    for i, ref in enumerate(want):
+        rel = float((runs[0][i].double() - ref.double()).norm() / ref.double().norm())
+        assert rel <= 1e-5, (i, rel)
+        assert all(torch.equal(r[i], runs[0][i]) for r in runs[1:]), i
+
+
+@pytest.mark.cuda
+def test_csn_stem_pool_backward_repeats_bitwise(cuda):
+    """The stem's max pool ((1,3,3)/(1,2,2), overlapping windows) on the
+    stem's output at the step's shape: `ops/pool.max_pool3d`'s backward the
+    same bits in three calls, equal to torch's within fp32 rounding (its
+    atomic adds of up to four outputs into one input)."""
+    from echoflow_torch.ops.pool import max_pool3d
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.relu(torch.randn((4, 64, 32, 56, 56), device="cuda", generator=g)).requires_grad_()
+    y = max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    want = torch.nn.functional.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    assert torch.equal(y, want)
+    dy = torch.randn(y.shape, device="cuda", generator=g)
+    grads = [torch.autograd.grad(max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1)), x, dy)[0]
+             for _ in range(3)]
+    assert all(torch.equal(a, grads[0]) for a in grads[1:])
+    torch.testing.assert_close(grads[0], torch.autograd.grad(want, x, dy)[0], rtol=1e-6,
+                               atol=1e-6)
+
+
+CSN_CHILD = """
+import hashlib, sys
+import torch
+from echoflow_torch.train.loop import TrainConfig, compiled_steps, create_train_state, prefetch_to_device
+from train_clasfv_torch import synthetic_batches
+state = create_train_state(0, TrainConfig(backbone="ir_csn_152"), device="cuda")
+step = compiled_steps(state)[0]
+for batch in prefetch_to_device(synthetic_batches(4, 32, 112, 3, seed=0), "cuda"):
+    state, _ = step(state, batch)
+h = hashlib.sha256()
+for v in state.model.state_dict().values():
+    h.update(v.detach().cpu().contiguous().numpy().tobytes())
+print(h.hexdigest())
+"""
+
+
+@pytest.mark.cuda
+def test_csn_graphed_steps_repeat_bitwise_in_a_fresh_process(cuda):
+    """Three graphed fp32 steps of CLAS-FV over ir-CSN-152 at full width
+    (`create_train_state(backbone="ir_csn_152")`, `compiled_steps`, batch
+    4 x 3 x 32 x 112 x 112) in two fresh processes: the same SHA-256 of
+    the model's parameters and buffers."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shas = [subprocess.run([sys.executable, "-c", CSN_CHILD], cwd=root, capture_output=True,
+                           text=True, timeout=900) for _ in range(2)]
+    for out in shas:
+        assert out.returncode == 0, out.stderr[-3000:]
+    assert shas[0].stdout.split()[-1] == shas[1].stdout.split()[-1]
+
+
+@pytest.mark.cuda
+def test_csn_folded_engine_segments_as_the_unfolded_model(cuda):
+    """`VideoSegmenter` over an ir-CSN-152 state dict on the card in fp32: the
+    folded graphed engine (`fold_bn=True`, K1) gives the masks of the
+    unfolded network's forward (`fold_bn=False, decoder="model"`) on a
+    synthetic echo, both classes present, but for pixels whose two logits
+    lie within fp32 rounding (at most 1e-4 of them)."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.r2plus1d import create_model
+
+    state = create_model(seed=4, backbone="ir_csn_152").state_dict()
+    state["segmentation_head.weight"] = state["segmentation_head.weight"] * 300.0
+    video = make_beating_video(num_frames=64, period=30.0, seed=1).video.astype(np.uint8)
+    masks = [VideoSegmenter(state, device="cuda", dtype=torch.float32, fold_bn=fold,
+                            decoder="kernel" if fold else "model")
+             .segment_video(video, num_clips=1) for fold in (True, False)]
+    assert masks[0].shape == (64, 112, 112) and 0 < masks[0].mean() < 1
+    assert np.mean(masks[0] != masks[1]) <= 1e-4

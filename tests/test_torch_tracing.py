@@ -354,9 +354,12 @@ def _train():
                          ("graph.outputs", 0.1), ("ef", 9.0)):
             host.append(_host_span(name, step, t, ms))
         spans_, t = _lay([("train.forward", step, 30.0), ("train.ota_and_chains", step, 20.0),
-                          ("train.backward", step, 150.0), ("train.optimizer", step, 5.0)], t)
+                          ("train.backward", step, 150.0), ("train.optimizer", step, 5.0),
+                          ("conv.depthwise", step, 2.0), ("dp.all_reduce", step, 3.0)], t)
         device += spans_
-    return {"host": host, "device": device, "counters": {}, "dropped": 0}, {"steps": 2}
+    # 3.35e9 bytes of depthwise traffic a step: 1 ms at 3.35 TB/s.
+    return ({"host": host, "device": device, "counters": {}, "dropped": 0},
+            {"steps": 2, "depthwise_bytes": 3.35e9})
 
 
 def _trace_of(snap):
@@ -382,7 +385,10 @@ TRAIN = {"forward_span_ms_per_step": 30.0, "loss_span_ms_per_step": 20.0,
          "backward_span_ms_per_step": 150.0, "optimizer_span_ms_per_step": 5.0,
          "step_host_ms": 1.6}
 READINGS = [(k, v) for k, v in ARCHIVE.items()] + [
-    (f"{k}{part}", v) for part in (".train", ".train.bf16") for k, v in TRAIN.items()]
+    (f"{k}{part}", v) for part in (".train", ".train.bf16", ".train.csn", ".train.dp4")
+    for k, v in TRAIN.items()] + [
+    ("depthwise_span_ms_per_step.csn", 2.0), ("depthwise_roofline_pct.csn", 50.0),
+    ("allreduce_span_ms_per_step.dp4", 3.0)]
 
 
 def _reader(name):

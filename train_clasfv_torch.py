@@ -60,6 +60,9 @@ def parse_args(argv=None):
                          "end-metric study, benchmarks/bf16_train_study.json: ES Dice "
                          "0.0056 below fp32)")
     ap.add_argument("--image-size", type=int, default=112)
+    ap.add_argument("--backbone", choices=["r2plus1d_18", "ir_csn_152"], default="r2plus1d_18",
+                    help="the network's backbone: CLAS-FV's R(2+1)D-18 (default) or "
+                         "ir-CSN-152 (Tran et al. 2019) under the same decoder and heads")
     ap.add_argument("--out", type=str, default="save_models/clasfv_torch.pth")
     ap.add_argument("--init-from", type=str, default=None,
                     help="stock torchvision r2plus1d_18 Kinetics-400 .pth: initialize "
@@ -265,13 +268,16 @@ def main(argv=None):
                       image_size=(args.image_size, args.image_size),
                       batch_size=args.batch_size,
                       compute_dtype={"fp32": torch.float32,
-                                     "bf16": torch.bfloat16}[args.compute_dtype])
+                                     "bf16": torch.bfloat16}[args.compute_dtype],
+                      backbone=args.backbone)
     state = create_train_state(args.seed, cfg, device=device)
     start_epoch, best_val = 0, float("inf")
     if args.init_from:
         if args.resume:
             raise SystemExit("--init-from and --resume are mutually exclusive "
                              "(resume already carries weights)")
+        if args.backbone != "r2plus1d_18":
+            raise SystemExit("--init-from takes a torchvision r2plus1d_18 checkpoint")
         from echoflow_torch.models.convert import load_kinetics_backbone
 
         state.model.load_state_dict(load_kinetics_backbone(args.init_from,
