@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from echoflow_torch.models.fast_forward import folded_forward
-from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
+from echoflow_torch.models.fold_bn import fit_tensor_cores, fold_state_dict, is_folded
 from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet
 from echoflow_torch.utils.device import upload
 from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
@@ -77,6 +77,7 @@ class ClipForward:
         model.eval().requires_grad_(False)
         if self.fold_bn:
             model.r2plus1d_model.to(self.dtype)
+            fit_tensor_cores(model.r2plus1d_model, self.device)
         else:   # fp32 parameters, BatchNorm statistics included (flax's rule)
             model.compute_dtype = self.dtype
         self._model = model.to(self.device)

@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from echoflow_torch.models.fast_forward import folded_forward
-from echoflow_torch.models.fold_bn import fold_state_dict, is_folded
+from echoflow_torch.models.fold_bn import fit_tensor_cores, fold_state_dict, is_folded
 from echoflow_torch.models.r2plus1d import backbone_of, motion_seg_net
 from echoflow_torch.ops.fusion import fuse_frames, softmax_mean_fuse
 from echoflow_torch.ops.normalize import zeroone_normalize
@@ -235,7 +235,9 @@ class VideoSegmenter:
         engine's `device`, where the rest of the work runs. `forward_chunk`
         is then the chunk per device.
     dtype : compute dtype. "auto" resolves to bfloat16 on CUDA and float32
-        on the CPU. float32 is the parity path: when `dtype` or
+        on the CPU. A 16-bit folded backbone on CUDA is fitted to cuDNN's
+        tensor cores (`fold_bn.fit_tensor_cores`: the same function).
+        float32 is the parity path: when `dtype` or
         `backbone_dtype` is float32 on CUDA, the engine turns TF32 off for
         cuDNN and matmuls. That setting is global to the process.
     backbone_dtype : dtype of the conv backbone only (None: `dtype`).
@@ -297,6 +299,7 @@ class VideoSegmenter:
             model.compute_dtype = self.dtype
         else:
             model.backbone.to(bdt)
+            fit_tensor_cores(model.backbone, self.device)
         # One replica per distinct device; the first device's is `_model`.
         self._replicas = {dev: copy.deepcopy(model).to(dev) for dev in self._devices
                           if dev != self.device}

@@ -10,6 +10,11 @@ The arithmetic runs in float32 numpy in the same order as `echoflow`'s, so
 a folded state dict is bitwise the conversion of `fold_variables`' tree.
 An ir-CSN-152 state dict (`models/csn.py`) folds the same way, each
 BatchNorm with its own eps, the depthwise convs included.
+
+For cuDNN's 16-bit tensor-core convs, `fit_tensor_cores` changes a folded
+backbone on the card, leaving its function as it is: `pad_widths`
+zero-pads its inner widths that are not a multiple of 8, and
+`temporal_convs_as_2d` runs its (k, 1, 1) convs as 2D convs.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from echoflow_torch.models.convert import _key_plan
-from echoflow_torch.models.r2plus1d import backbone_of
+from echoflow_torch.models.r2plus1d import Conv3d, TemporalConv3d, backbone_of
+from echoflow_torch.utils.profiling import count
 
 _EPS = 1e-5
 
@@ -69,3 +76,97 @@ def fold_state_dict(state_dict: Mapping) -> dict:
         if bias is not None:
             out[f"{prefix}.bias"] = torch.from_numpy(np.asarray(_np(bias), np.float32))
     return out
+
+
+def _plain_conv(mod) -> bool:
+    return isinstance(mod, nn.Conv3d) and mod.groups == 1
+
+
+def _zero_grow(conv: nn.Conv3d, dim: int, pad: int):
+    """`pad` zero filters (dim 0, with zero bias) or zero input channels
+    (dim 1) appended to `conv`."""
+    def grown(p, axis):
+        shape = list(p.shape)
+        shape[axis] = pad
+        return nn.Parameter(torch.cat([p.detach(), p.new_zeros(shape)], axis),
+                            requires_grad=p.requires_grad)
+
+    conv.weight = grown(conv.weight, dim)
+    if dim == 0:
+        conv.out_channels += pad
+        if conv.bias is not None:
+            conv.bias = grown(conv.bias, 0)
+    else:
+        conv.in_channels += pad
+
+
+@torch.no_grad()
+def pad_widths(backbone: nn.Module, multiple: int = 8) -> int:
+    """Zero-pad the inner width of every conv -> ReLU -> conv pair of a
+    folded backbone up to a multiple of `multiple`; returns the number of
+    pairs padded.
+
+    A pair is two one-group `Conv3d`s of one `nn.Sequential` with only
+    `nn.Identity` (a folded BatchNorm) and `nn.ReLU` between them: in
+    R(2+1)D-18 the stem's [0]/[3] and each (2+1)D conv's [0]/[3], whose
+    middle widths 45, 230, 460 and 921 (torchvision's midplanes) become
+    48, 232, 464 and 928. The first conv gains `-m % multiple` filters of
+    zero weight and zero bias, the second as many input channels of zero
+    weight. A padded channel is 0 after the first conv and its ReLU and
+    adds exact zeros to the second, so the backbone computes the same
+    function and no tap's width changes. A second call pads nothing.
+    ir-CSN-152 has no pair (each conv has its own Sequential, and every
+    width is a multiple of 8); a depthwise conv is never padded. An
+    unfolded backbone has a BatchNorm in each pair and is left alone.
+
+    cuDNN's bf16 and fp16 tensor-core convs take channels in 16-byte
+    multiples: at the widths above cuDNN 9.2 adds a channel-padding
+    transform and memsets around the conv, 1% of the 16-bit backbone's
+    time on an H100."""
+    padded = 0
+    for seq in backbone.modules():
+        if not isinstance(seq, nn.Sequential):
+            continue
+        mods = list(seq)
+        for i, first in enumerate(mods):
+            j = i + 1
+            while j < len(mods) and isinstance(mods[j], (nn.Identity, nn.ReLU)):
+                j += 1
+            if not (_plain_conv(first) and j < len(mods) and _plain_conv(mods[j])):
+                continue
+            pad = -first.out_channels % multiple
+            if pad:
+                _zero_grow(first, 0, pad)
+                _zero_grow(mods[j], 1, pad)
+                padded += 1
+    return padded
+
+
+def temporal_convs_as_2d(backbone: nn.Module) -> int:
+    """Make every one-group `Conv3d` of `backbone` whose kernel, stride and
+    padding act on time alone, kernel (k > 1, 1, 1), a `TemporalConv3d`
+    (same parameters and function, computed as a 2D conv over (T, H*W));
+    returns how many. R(2+1)D-18 has 17 (the stem's and each (2+1)D
+    conv's second); ir-CSN-152 none."""
+    n = 0
+    for mod in backbone.modules():
+        if (type(mod) is Conv3d and mod.groups == 1 and mod.kernel_size[0] > 1
+                and mod.kernel_size[1:] == (1, 1) and mod.stride[1:] == (1, 1)
+                and mod.padding[1:] == (0, 0)):
+            mod.__class__ = TemporalConv3d
+            n += 1
+    return n
+
+
+def fit_tensor_cores(backbone: nn.Module, device) -> int:
+    """For a folded backbone whose parameters are bf16 or fp16 and that
+    runs on CUDA: `pad_widths`, counted as `engine.padded_widths`, and
+    `temporal_convs_as_2d`; returns the pairs padded. Elsewhere (fp32, the
+    CPU) 0, and the backbone is left as it is."""
+    dtype = next(backbone.parameters()).dtype
+    if torch.device(device).type != "cuda" or dtype not in (torch.bfloat16, torch.float16):
+        return 0
+    n = pad_widths(backbone)
+    count("engine.padded_widths", n)
+    temporal_convs_as_2d(backbone)
+    return n

@@ -206,6 +206,23 @@ class Conv3d(nn.Conv3d):
                                     groups=self.groups)
 
 
+class TemporalConv3d(Conv3d):
+    """A `Conv3d` whose kernel, stride and padding act on time alone
+    ((k, 1, 1)), computed as a 2D conv over (T, H*W) of a free view of its
+    input: the same products, summed over the same terms. The folded 16-bit
+    engine backbone's (2+1)D temporal convs run so
+    (`fold_bn.temporal_convs_as_2d`): cuDNN 9.2 runs a bf16 (3, 1, 1) conv3d
+    at 32 x 56 x 56 on its fp32 fallback, the operands cast both ways, and
+    this conv2d on bf16 tensor cores."""
+
+    def forward(self, x):
+        n, c, t, h, w = x.shape
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = conv_ops.convolution(x.reshape(n, c, t, h * w), self.weight.to(x.dtype).flatten(3),
+                                 bias, self.stride[:2], self.padding[:2])
+        return y.reshape(*y.shape[:3], h, w)
+
+
 def _bn(ch: int, folded: bool, eps: float = BN_EPS, momentum: float = 0.1) -> nn.Module:
     # torch momentum 0.1 is flax momentum 0.9 (running-stat update weight).
     return nn.Identity() if folded else BatchNorm3d(ch, eps=eps, momentum=momentum)

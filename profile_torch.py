@@ -5,6 +5,7 @@
     python3 profile_torch.py --train [--compute-dtype fp32|bf16] [--remat] [--out PATH]
     python3 profile_torch.py --clips 8 [--out PATH]
     python3 profile_torch.py --convs [--conv-models clasfv camus csn] [--out PATH]
+    python3 profile_torch.py --backbone-convs [--dtype bfloat16] [--out PATH]
     python3 profile_torch.py CHECKPOINT [CHECKPOINT ...] [--out PATH]
 
 Runs the engine of chip_smoke.py (full-width R(2+1)D-18, seeded weights,
@@ -65,6 +66,21 @@ CLAS-FV's by default), each geometry times
 its calls in the step; `*.taken` is the routes that `ROUTES` takes.
 `by_class_ms` adds them by model and geometry class, with the calls whose
 default engine gave other bits (`calls_apart`).
+
+With --backbone-convs it times the forward of every distinct conv of the
+engine's folded R(2+1)D-18 backbone in `--dtype`, at the engine's chunk
+shape (30 clips x 3 x 32 x 112 x 112), in each of four variants: as
+folded ("folded"), after `models/fold_bn.pad_widths` ("padded"), after
+`fold_bn.temporal_convs_as_2d` ("temporal_2d"), and after both, as the
+16-bit engine runs it ("engine"); and the padded stem's (1,7,7) conv once
+more with its 3 input channels zero-padded to 8 ("stem_in8"). A
+geometry is (input shape, weight shape, stride, padding); each row gives
+the modules that run it, its time (CUDA events, median of 10) and the
+kernels one call launches, by name with their device ms (torch.profiler,
+3 calls): the conv kernel, cuDNN's `convertTensor` dtype casts, the
+NCHW<->NHWC transposes. `backbone` is the whole backbone's forward in each
+variant, the same way; `sums_ms` adds each variant's convs (every module
+its own call) and their kernels by kind.
 
 With CHECKPOINT arguments (the port's `.pth`, e.g. `train_clasfv_torch.py`'s
 `<out>.last`) it evaluates them instead, as echoflow's bf16 training study
@@ -546,6 +562,124 @@ def profile_convs(out_path=None, models=CONV_MODELS):
             json.dump(result, f, indent=1)
 
 
+ENGINE_CHUNK = 30    # VideoSegmenter's forward_chunk
+BACKBONE_VARIANTS = ("folded", "padded", "temporal_2d", "engine")
+
+
+def folded_backbone(dtype, variant):
+    """The engine's folded R(2+1)D-18 backbone (seeded weights) in `dtype`
+    on the card: as folded, with its widths padded (`fold_bn.pad_widths`),
+    with its temporal convs as 2D convs (`fold_bn.temporal_convs_as_2d`),
+    or with both, as the engine runs it in 16 bits (`variant`, one of
+    BACKBONE_VARIANTS)."""
+    from echoflow_torch.models.fold_bn import fold_state_dict, pad_widths, temporal_convs_as_2d
+    from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet, create_model
+
+    model = R2Plus1DMotionSegNet(folded=True)
+    model.load_state_dict(fold_state_dict(create_model(seed=0).state_dict()))
+    backbone = model.backbone.eval().requires_grad_(False).to(dtype)
+    if variant in ("padded", "engine"):
+        pad_widths(backbone)
+    if variant in ("temporal_2d", "engine"):
+        temporal_convs_as_2d(backbone)
+    return backbone.cuda()
+
+
+def _kernels_ms(fn, calls=3):
+    """{kernel name: device ms a call} of `fn` under torch.profiler, after
+    one call outside it."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, kernels = split_device_time(prof, {})
+    return {k: ms / calls for k, ms in sorted(kernels.items(), key=lambda kv: -kv[1])}
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a kernel of a 16-bit conv: cuDNN's fp32 fallback, a
+    dtype cast, a layout transpose, or the rest."""
+    if "f32f32" in name:
+        return "fp32_conv"
+    if "convertTensor" in name:
+        return "convert"
+    if "nchwToNhwc" in name or "nhwcToNchw" in name:
+        return "transpose"
+    return "other"
+
+
+def profile_backbone_convs(out_path=None, dtype="bfloat16"):
+    """`--backbone-convs`: see the module docstring."""
+    import torch.nn as nn
+
+    dt = getattr(torch, dtype)
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((ENGINE_CHUNK, 3, 32, 112, 112), device="cuda", generator=g).to(dt)
+    rows, whole, sums = [], {}, {}
+    for variant in (*BACKBONE_VARIANTS, "stem_in8"):
+        backbone = folded_backbone(dt, "padded" if variant == "stem_in8" else variant)
+        convs = {name: m for name, m in backbone.named_modules() if isinstance(m, nn.Conv3d)}
+        names, shapes = {m: name for name, m in convs.items()}, {}
+
+        def record(mod, args):
+            shapes[names[mod]] = tuple(args[0].shape)
+
+        hooks = [m.register_forward_pre_hook(record) for m in convs.values()]
+        with torch.no_grad():
+            backbone(x)
+        for h in hooks:
+            h.remove()
+        if variant == "stem_in8":   # the stem alone, its input zero-padded to 8
+            stem = backbone.stem[0]
+            wide = nn.Conv3d(8, stem.out_channels, stem.kernel_size, stem.stride,
+                             stem.padding).to("cuda", dt).requires_grad_(False)
+            wide.weight.zero_()
+            wide.weight[:, :3] = stem.weight
+            wide.bias.copy_(stem.bias)
+            convs, shapes = {"stem.0": wide}, {"stem.0": (ENGINE_CHUNK, 8, *x.shape[2:])}
+        else:
+            with torch.no_grad():
+                whole[variant] = dict(ms=_event_ms(lambda: backbone(x)),
+                                      kernels_ms=_kernels_ms(lambda: backbone(x)))
+        geometries = {}
+        for name, m in convs.items():
+            key = (shapes[name], tuple(m.weight.shape), m.stride, m.padding)
+            geometries.setdefault(key, []).append(name)
+        totals = sums.setdefault(variant, {"convs": 0.0})
+        for (xs, ws, stride, padding), modules in geometries.items():
+            conv = convs[modules[0]]
+            xi = torch.rand(xs, device="cuda", generator=g).to(dt)
+            with torch.no_grad():
+                out = conv(xi)
+                gmac = out.numel() // out.shape[1] * ws[0] * int(np.prod(ws[1:])) / 1e9
+                row = dict(variant=variant, modules=modules, module=type(conv).__name__,
+                           input=list(xs), weight=list(ws),
+                           stride=list(stride), padding=list(padding), gmac=gmac,
+                           ms=_event_ms(lambda: conv(xi)), kernels_ms=_kernels_ms(lambda: conv(xi)))
+            totals["convs"] += len(modules) * row["ms"]
+            for k, ms in row["kernels_ms"].items():
+                kind = kernel_kind(k)
+                totals[kind] = totals.get(kind, 0.0) + len(modules) * ms
+            rows.append(row)
+            print(json.dumps({**row, "kernels_ms": dict(list(row["kernels_ms"].items())[:4])}),
+                  flush=True)
+            del xi, out
+        del backbone
+        torch.cuda.empty_cache()
+    result = {"card": nvidia_smi_line(), "mode": "backbone_convs", "dtype": dtype,
+              "chunk": ENGINE_CHUNK,
+              "backbone_ms": {v: w["ms"] for v, w in whole.items()},
+              "backbone_kernels_ms": {v: top_kernels(w["kernels_ms"]) for v, w in whole.items()},
+              "sums_ms": sums}
+    print(json.dumps(result))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({**result, "rows": rows}, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkpoints", nargs="*",
@@ -566,6 +700,9 @@ def main():
     ap.add_argument("--conv-models", nargs="+", choices=CONV_MODELS, default=CONV_MODELS,
                     help="with --convs: the models whose convolutions are recorded "
                          "(sums_ms adds the first's)")
+    ap.add_argument("--backbone-convs", action="store_true",
+                    help="time the folded backbone's forward convs one by one in --dtype, "
+                         "in each variant of fold_bn.fit_tensor_cores, instead")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -573,6 +710,8 @@ def main():
     _build.build_all()
     if args.convs:
         return profile_convs(args.out, tuple(args.conv_models))
+    if args.backbone_convs:
+        return profile_backbone_convs(args.out, args.dtype)
     if args.checkpoints:
         return evaluate_checkpoints(args.checkpoints, args.out)
     if args.train:

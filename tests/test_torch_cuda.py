@@ -1515,3 +1515,72 @@ def test_csn_folded_engine_segments_as_the_unfolded_model(cuda):
              .segment_video(video, num_clips=1) for fold in (True, False)]
     assert masks[0].shape == (64, 112, 112) and 0 < masks[0].mean() < 1
     assert np.mean(masks[0] != masks[1]) <= 1e-4
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.cuda
+def test_bf16_engine_backbone_runs_on_bf16_tensor_cores(cuda):
+    """The bf16 engine's folded backbone (`VideoSegmenter(dtype=bfloat16)`,
+    `fold_bn.fit_tensor_cores`: 7 pairs padded and counted, 17 temporal
+    convs as 2D) on one engine chunk (30 x 3 x 32 x 112 x 112, seeded
+    weights). Its five taps are as close to the fp32 folded backbone's
+    (TF32 off) as the unfitted bf16 backbone's are, within 1.25x by
+    relative L2, and within 2x that distance of the unfitted bf16 taps:
+    two bf16 paths that round in another order each lie about that far
+    from fp32, so about sqrt(2) times it from each other. A profiled
+    forward launches a bf16 tensor-core conv, no kernel of cuDNN's fp32
+    fallback (`f32f32` in its name) and no `convertTensor` cast; the
+    unfitted backbone's forward launches both (a conv of 144 channels,
+    already a multiple of 8, at 32 x 56 x 56: the widths alone do not
+    cause it). `ClipForward` in bf16 is fitted the same way."""
+    from echoflow_torch.infer.clips import ClipForward
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.fold_bn import fold_state_dict
+    from echoflow_torch.models.r2plus1d import (R2Plus1DMotionSegNet, TemporalConv3d,
+                                                create_model)
+    from echoflow_torch.utils.profiling import counters
+
+    torch.backends.cudnn.allow_tf32 = False
+    state = create_model(seed=3).state_dict()
+    before = counters().get("engine.padded_widths", 0)
+    fitted = VideoSegmenter(state, dtype=torch.bfloat16)._model.backbone
+    assert counters().get("engine.padded_widths", 0) - before == 7
+    assert sum(isinstance(m, TemporalConv3d) for m in fitted.modules()) == 17
+    clips = ClipForward(state, dtype=torch.bfloat16)
+    assert counters().get("engine.padded_widths", 0) - before == 14
+    assert sum(isinstance(m, TemporalConv3d) for m in clips._model.modules()) == 17
+    folded = R2Plus1DMotionSegNet(folded=True)
+    folded.load_state_dict(fold_state_dict(state))
+    unfitted = folded.backbone.eval().requires_grad_(False).cuda()
+    video = torch.rand((30, 3, 32, 112, 112), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        want = [t.float() for t in unfitted(video)]      # fp32
+        unfitted.to(torch.bfloat16)
+        plain = [t.float() for t in unfitted(video.bfloat16())]
+        got = [t.float() for t in fitted(video.bfloat16())]
+    for i, (g, p, w) in enumerate(zip(got, plain, want)):
+        e_plain, e_fit, apart = _rel_l2(p, w), _rel_l2(g, w), _rel_l2(g, p)
+        print(f"tap {i}: plain bf16 {e_plain:.3e}, fitted {e_fit:.3e} from fp32; "
+              f"{apart:.3e} apart")
+        assert 0 < e_plain < 0.05 and e_fit <= 1.25 * e_plain and apart <= 2 * e_plain, i
+
+    def kernels(backbone):
+        x = video.bfloat16()
+        with torch.no_grad():
+            backbone(x)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as p:
+                backbone(x)
+                torch.cuda.synchronize()
+        return {e.name for e in p.events() if e.device_type != torch.autograd.DeviceType.CPU}
+
+    names = kernels(fitted)
+    assert any("bf16bf16" in k for k in names), sorted(names)
+    assert not [k for k in names if "f32f32" in k or "convertTensor" in k]
+    names = kernels(unfitted)
+    assert any("f32f32" in k for k in names) and any("convertTensor" in k for k in names)
