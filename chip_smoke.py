@@ -198,6 +198,7 @@ from echoflow_torch.ops.normalize import zeroone_normalizer
 from echoflow_torch.ops.warp import offset_coords
 from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_eval_step,
                                        make_train_step, prefetch_to_device)
+from echoflow_torch.utils.profiling import counters
 from train_clasfv_torch import synthetic_batches
 
 # Peak rates of an H100 SXM (NVIDIA data sheet): fp32 outside the tensor
@@ -523,14 +524,28 @@ def count_syncs(fn):
     return result, sites
 
 
+# Each kernel's count (`<kernel>.launches` of `utils/profiling.counters`)
+# when `_zero_launches` last zeroed it; a plain version counts nothing.
+_ZEROED: dict = {}
+
+
+def _zero_launches(*kernels):
+    for kernel in kernels:
+        _ZEROED[kernel] = counters().get(f"{kernel}.launches", 0)
+
+
+def _launched(kernel: str) -> int:
+    """The launches of a kernel wrapper since `_zero_launches` zeroed it."""
+    return counters().get(f"{kernel}.launches", 0) - _ZEROED.get(kernel, 0)
+
+
 def _launch_counts():
-    """(K2, K3, K4) launches; 0 for a plain version swapped in (`plain_warp`)."""
-    return tuple(getattr(fn, "launches", 0)
-                 for fn in (wk.warp_forward, wk.warp_image_grad, wk.warp_coord_grad))
+    """(K2, K3, K4) launches since `_zero_launch_counts`."""
+    return tuple(_launched(k) for k in ("warp_forward", "warp_image_grad", "warp_coord_grad"))
 
 
 def _zero_launch_counts():
-    wk.warp_forward.launches = wk.warp_image_grad.launches = wk.warp_coord_grad.launches = 0
+    _zero_launches("warp_forward", "warp_image_grad", "warp_coord_grad")
 
 
 def _step_grads(device, batch, dtype=torch.float32):
@@ -699,11 +714,11 @@ def phase_main_path():
     engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")  # warm-up
     torch.cuda.synchronize()
 
-    decoder_heads.launches = 0
+    _zero_launches("decoder_heads")
     t0 = time.perf_counter()
     masks = list(engine.segment_videos(videos, num_clips=5, step=1, fuse_method="simple"))
     seconds = time.perf_counter() - t0
-    launches = decoder_heads.launches
+    launches = _launched("decoder_heads")
     if launches < 1:
         raise AssertionError("the main path never launched the decoder-tail kernel")
 
@@ -824,11 +839,11 @@ def phase_clips():
     clip_fwd.segment_start_points(video, starts[:CLIP_CHUNK])   # warm-up
     torch.cuda.synchronize()
 
-    decoder_heads.launches = 0
+    _zero_launches("decoder_heads")
     t0 = time.perf_counter()
     labels, probs, motion = clip_fwd.segment_start_points(video, starts)
     clip_seconds = time.perf_counter() - t0
-    launches = decoder_heads.launches
+    launches = _launched("decoder_heads")
     want_launches = -(-len(starts) // CLIP_CHUNK)
     n = len(starts)
     log(f"clips: {n} clips around ED frame {ed} (starts {starts[0]}..{starts[-1]}), "
@@ -894,9 +909,9 @@ def phase_clips():
                                           + (t - 1) * k2_bytes(n, 3, 112, 112))}
     rollouts = {}
     for name, (fn, want) in calls.items():
-        wk.warp_forward.launches = 0
+        _zero_launches("warp_forward")
         got = fn()
-        count = wk.warp_forward.launches
+        count = _launched("warp_forward")
         with plain_warp():
             ref = fn()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
@@ -1161,11 +1176,11 @@ def phase_dp_engine(main_run):
         t_pad = max(engine.bucket, -(-length // engine.bucket) * engine.bucket)
         n_fwd = len(_build_host_operands(length, 5, 1, t_pad)["valid_clip_idx"])
         want += engine._chunk_plan(n_fwd)[0] * len(engine.devices)
-    decoder_heads.launches = 0
+    _zero_launches("decoder_heads")
     t0 = time.perf_counter()
     masks = list(engine.segment_videos(videos, num_clips=5, step=1, fuse_method="simple"))
     seconds = time.perf_counter() - t0
-    launches = decoder_heads.launches
+    launches = _launched("decoder_heads")
     mismatch = max(float((a != b).mean()) for a, b in zip(masks, main_run["masks"]))
     _, syncs = count_syncs(lambda: engine.segment_video_async(videos[0], num_clips=5, step=1))
     log(f"dp (b): engine on devices [cuda:0, cuda:0], fp32: K1 launches {launches}, plan "
@@ -1221,7 +1236,7 @@ def phase_camus():
     import train_camus_torch
     from echoflow_torch.train.camus_losses import ota_loss, sgs_ots_loss
 
-    decoder_heads.launches = 0
+    _zero_launches("decoder_heads")
     x = camus_inputs()
     t = CAMUS_SHAPE[1]
     losses = {
@@ -1286,7 +1301,7 @@ def phase_camus():
         if not (np.isfinite(losses_by["cuda"]).all() and rel <= CAMUS_TRAIN_TOL):
             raise AssertionError(f"train_camus_torch {key}: card and CPU disagree")
     # The CAMUS trainer's SegNet runs no warp, and no phase-10 path runs K1.
-    train_counts, k1_launches = _launch_counts(), decoder_heads.launches
+    train_counts, k1_launches = _launch_counts(), _launched("decoder_heads")
     log(f"camus: launches in 10b (K2, K3, K4) {train_counts}, implied (0, 0, 0); K1 in "
         f"phase 10 {k1_launches}, implied 0")
     if train_counts != (0, 0, 0) or k1_launches:
@@ -1848,7 +1863,7 @@ def phase_graphs():
         cfg = dataclasses.replace(base, compute_dtype=dtype)
         train_f, eval_f, want, want_eval = recipe_steps(recipe, t)
         factory = functools.partial(train_f, remat)
-        decoder_heads.launches = 0
+        _zero_launches("decoder_heads")
         batches = list(prefetch_to_device(iter(hosts[recipe]), "cuda"))
         runs = []
         for graph in (False,) * EAGER_RUNS + (True,):
@@ -1899,7 +1914,7 @@ def phase_graphs():
                 evals.append(dict(rel=max(abs(m[k] - ref[k]) / max(abs(ref[k]), 1e-30)
                                           for k in ref), launches=counts))
             del g_eval
-        k1_launches = decoder_heads.launches
+        k1_launches = _launched("decoder_heads")
         del state, step
         torch.cuda.empty_cache()
         eager_ms = [rec["ms"] for r in runs[:-1] for rec in r["steps"][1:]]
@@ -1986,14 +2001,14 @@ def phase_graphed_trainer():
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "ck.pth")
             _zero_launch_counts()
-            decoder_heads.launches = 0
+            _zero_launches("decoder_heads")
             t0 = time.perf_counter()
             state = train_clasfv_torch.main(
                 ["--synthetic", "--steps", str(TRAINER_STEPS), "--epochs", str(TRAINER_EPOCHS),
                  "--lr-drop-epoch", "1", "--log-every", "1", "--out", out])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts, k1_launches = _launch_counts(), decoder_heads.launches
+            counts, k1_launches = _launch_counts(), _launched("decoder_heads")
             saved_step = ck.load_checkpoint(out + ".last")["step"]
     finally:
         loop.graphed = graph_module.graphed
@@ -2096,7 +2111,7 @@ def _dp_graph_variant(name, fn, state, batches, compare, profile_eager=True):
     from echoflow_torch.train.graph import graphed
 
     t0 = time.perf_counter()
-    decoder_heads.launches = 0
+    _zero_launches("decoder_heads")
 
     def run(step):
         return lambda batch: step(state, batch)
@@ -2128,7 +2143,7 @@ def _dp_graph_variant(name, fn, state, batches, compare, profile_eager=True):
         replay_nccl_events=dict(nccl), eager_profiled=(e_wall, e_busy, e_named),
         replay_wall_ms=wall, replay_busy_ms=busy, replay_idle_share=1.0 - busy / wall,
         profiled_launches=named, sync_error=error, values=values,
-        reserved_bytes=torch.cuda.memory_reserved(), k1_launches=decoder_heads.launches,
+        reserved_bytes=torch.cuda.memory_reserved(), k1_launches=_launched("decoder_heads"),
         graphs=len(g.graphs))
     log(f"dp graphs ({name}): eager median {res['eager_median_ms']:.1f} ms "
         f"{[round(x, 1) for x in eager_ms]}, graphed median {res['graphed_median_ms']:.1f} "
@@ -2143,7 +2158,7 @@ def _dp_graph_variant(name, fn, state, batches, compare, profile_eager=True):
         f"{res['replay_idle_share']:.1%}{eager_profile}); "
         f"K1-K4 by name (K1, K2, K3 x{K3_KERNELS}, K4) replay {named}, eager {e_named}; launches "
         f"(K2, K3, K4) eager {eager_launches[-1]}, graphed {graph_launches}; K1 "
-        f"{decoder_heads.launches}; waits in a replay: {0 if error is None else error}; "
+        f"{_launched('decoder_heads')}; waits in a replay: {0 if error is None else error}; "
         f"reserved {res['reserved_bytes'] / 2**30:.3f} GiB; values {values}; "
         f"{time.perf_counter() - t0:.1f} s")
     return res, g
@@ -2257,13 +2272,13 @@ def _dp_fit_on_mesh(cfg, host):
         steps = (compiled_steps(state) if mode == "graphed"
                  else (make_train_step(), make_eval_step()))
         _zero_launch_counts()
-        decoder_heads.launches = 0
+        _zero_launches("decoder_heads")
         t0 = time.perf_counter()
         state, histories[mode] = fit_on_mesh(state, train, evaluate, log_every=1,
                                              log_fn=lambda line: None, steps=steps)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = (decoder_heads.launches, *_launch_counts())
+        counts = (_launched("decoder_heads"), *_launch_counts())
         replays = [sum(e.replays for e in s.graphs.values()) if isinstance(s, GraphedStep)
                    else None for s in steps]
         del steps, state
@@ -2369,10 +2384,10 @@ def phase_graphed_rollouts(inputs):
             made = set(fn.graphs) - held
             torch.cuda.synchronize()
             _zero_launch_counts()
-            decoder_heads.launches = 0
+            _zero_launches("decoder_heads")
             got = graphed_call()
             torch.cuda.synchronize()
-            counts = (decoder_heads.launches, *_launch_counts())     # K1, K2, K3, K4
+            counts = (_launched("decoder_heads"), *_launch_counts())     # K1, K2, K3, K4
             bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
             nodes = graph_kernel_nodes(fn.graphs[key].graph)       # K1, K2, K3 x4, K4
             eager_ms = cuda_ms(eager_call, reps=5, warmup=1)
@@ -2433,7 +2448,7 @@ def phase_graphed_camus():
             return made[-1]
 
         _zero_launch_counts()
-        decoder_heads.launches = 0
+        _zero_launches("decoder_heads")
         generic.GraphedFunction = recording
         try:
             t0 = time.perf_counter()
@@ -2443,7 +2458,7 @@ def phase_graphed_camus():
             sha = state_sha(model)
         finally:
             generic.GraphedFunction = real
-        counts = (*_launch_counts(), decoder_heads.launches)
+        counts = (*_launch_counts(), _launched("decoder_heads"))
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_losses))
         graphs = [(len(g.graphs), sum(e.replays for e in g.graphs.values())) for g in made]
         key = "acnn" if acnn else "plain"
@@ -2771,9 +2786,9 @@ def phase_repeatable_training(graphs, camus, camus_graphs):
     state = create_train_state(0, base, device="cuda")
     step = make_train_step(fused_ota=True)
     state, _ = step(state, batches[0])
-    before = wk.warp_image_grad.launches
+    before = _launched("warp_image_grad")
     _, k3_ms = device_ms(lambda: step(state, batches[1]), reps=3, match="warp_image_grad_kernel")
-    launches = (wk.warp_image_grad.launches - before) // 4   # device_ms calls it 4 times
+    launches = (_launched("warp_image_grad") - before) // 4   # device_ms calls it 4 times
     del state
     torch.cuda.empty_cache()
     out["k3_us_in_step"] = k3_ms * 1e3 / launches
@@ -2859,9 +2874,9 @@ def phase_engine_graphs(main_run):
         engine = VideoSegmenter(state, dtype=dtype)
         counts = _count_calls(engine._run)
         engine.segment_video(videos[0], num_clips=5, step=1, fuse_method="simple")  # warm-up
-        decoder_heads.launches = 0
+        _zero_launches("decoder_heads")
         masks, _ = _engine_pass(engine, videos)       # the capture at video 0, two replays
-        k1 = decoder_heads.launches
+        k1 = _launched("decoder_heads")
         torch.cuda.empty_cache()
         reserved_graphed = torch.cuda.memory_reserved()
         times = {"eager": [], "graphed": []}
@@ -2936,9 +2951,9 @@ def phase_clip_graphs():
     eager._forward = eager._forward.__wrapped__
     want = eager(clips)
     graphed_fwd(clips)                  # the warm-up, then the capture and its replay
-    decoder_heads.launches = 0
+    _zero_launches("decoder_heads")
     got = graphed_fwd(clips)
-    k1 = decoder_heads.launches
+    k1 = _launched("decoder_heads")
     bitwise = all(np.array_equal(a, b) for a, b in zip(got, want))
     times = {"eager": [], "graphed": []}
     for _ in range(5):

@@ -32,11 +32,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from echoflow_torch.models.fast_forward import folded_forward
-from echoflow_torch.models.fold_bn import fit_tensor_cores, fold_state_dict, is_folded
-from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet
+from echoflow_torch.infer.model import forward, inference_model
 from echoflow_torch.utils.device import upload
-from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
+from echoflow_torch.utils.graphs import model_graphs
 
 CLIP_LEN = 32
 
@@ -46,10 +44,11 @@ class ClipForward:
     """Chunked batched forward over arbitrary clip stacks.
 
     Parameters mirror `VideoSegmenter`: `variables` is the port's state
-    dict (a state dict without BN statistics is taken as folded), `device`
-    is "cuda" (default; raises without a card) or "cpu", and float32 on
-    CUDA turns TF32 off for cuDNN and matmuls (process-wide). `dtype` is
-    the compute dtype; `forward_chunk` clips are forwarded at a time.
+    dict over either backbone (a state dict without BN statistics is taken
+    as folded), `device` is "cuda" (default; raises without a card) or
+    "cpu", and float32 on CUDA turns TF32 off for cuDNN and matmuls
+    (process-wide). `dtype` is the compute dtype; `forward_chunk` clips are
+    forwarded at a time. The model is `infer/model.inference_model`'s.
     """
 
     variables: dict
@@ -61,43 +60,14 @@ class ClipForward:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ClipForward: no CUDA device (pass device='cpu' to run on "
-                               "the CPU)")
-        if self.device.type == "cuda" and self.dtype == torch.float32:
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        state = dict(self.variables)
-        folded = is_folded(state)
-        if self.fold_bn and not folded:
-            state = fold_state_dict(state)
-            folded = True
-        model = R2Plus1DMotionSegNet(folded=folded)
-        model.load_state_dict(state)
-        model.eval().requires_grad_(False)
-        if self.fold_bn:
-            model.r2plus1d_model.to(self.dtype)
-            fit_tensor_cores(model.r2plus1d_model, self.device)
-        else:   # fp32 parameters, BatchNorm statistics included (flax's rule)
-            model.compute_dtype = self.dtype
-        self._model = model.to(self.device)
+        self._model = inference_model(self.variables, self.device, self.dtype,
+                                      fold_bn=self.fold_bn, kernel=self.fold_bn)
         if self.device.type == "cuda":
-            self._forward = self._graphed(self._forward)
-
-    def _graphed(self, forward, wrapper=GraphedFunction):
-        """`forward` (the eager chunk forward) as CUDA graphs of the model:
-        its parameters are the graphs' bindings, its pool their memory."""
-        model = self._model
-        return wrapper(forward, memory=model_memory(model, self.device),
-                       bindings=lambda **others: module_bindings(model))
+            self._forward = model_graphs(self._forward, self._model)
 
     @torch.no_grad()
     def _forward(self, xs: torch.Tensor):
-        if self.fold_bn:
-            seg, motion = folded_forward(self._model, xs, dtype=self.dtype,
-                                         with_motion=self.with_motion)
-        else:
-            seg, motion = self._model(xs)
+        seg, motion = forward(self._model, xs, self.fold_bn, self.dtype, self.with_motion)
         probs = torch.softmax(seg, dim=1)
         return (probs, motion) if self.with_motion else (probs,)
 

@@ -70,16 +70,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from echoflow_torch.models.fast_forward import folded_forward
-from echoflow_torch.models.fold_bn import fit_tensor_cores, fold_state_dict, is_folded
-from echoflow_torch.models.r2plus1d import backbone_of, motion_seg_net
+from echoflow_torch.infer.model import forward, inference_model
 from echoflow_torch.ops.fusion import fuse_frames, softmax_mean_fuse
 from echoflow_torch.ops.normalize import zeroone_normalize
 from echoflow_torch.ops.resize import _linear_resize_matrix_np, resize_linear
 from echoflow_torch.parallel.mesh import data_devices
 from echoflow_torch.utils.concurrency import get_or_build
 from echoflow_torch.utils.device import upload
-from echoflow_torch.utils.graphs import GraphedFunction, model_memory, module_bindings
+from echoflow_torch.utils.graphs import model_graphs
 from echoflow_torch.utils.profiling import count, record, span
 
 CLIP_LEN = 32
@@ -235,11 +233,9 @@ class VideoSegmenter:
         engine's `device`, where the rest of the work runs. `forward_chunk`
         is then the chunk per device.
     dtype : compute dtype. "auto" resolves to bfloat16 on CUDA and float32
-        on the CPU. A 16-bit folded backbone on CUDA is fitted to cuDNN's
-        tensor cores (`fold_bn.fit_tensor_cores`: the same function).
-        float32 is the parity path: when `dtype` or
-        `backbone_dtype` is float32 on CUDA, the engine turns TF32 off for
-        cuDNN and matmuls. That setting is global to the process.
+        on the CPU. float32 is the parity path, with TF32 off for the
+        process; a 16-bit folded backbone on CUDA is fitted to cuDNN's
+        tensor cores, the same function (`infer/model.inference_model`).
     backbone_dtype : dtype of the conv backbone only (None: `dtype`).
     forward_chunk : clips per forward chunk (bounds peak activation memory)
     bucket : videos are padded to a multiple of this many frames
@@ -272,38 +268,15 @@ class VideoSegmenter:
         self.device = torch.device(self.device)
         if self.devices is None:
             self._devices = [self.device]
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("VideoSegmenter: no CUDA device (pass device='cpu' "
-                               "to run on the CPU)")
         if self.dtype == "auto":
             self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        bdt = self.dtype if self.backbone_dtype is None else self.backbone_dtype
-        if self.device.type == "cuda" and torch.float32 in (self.dtype, bdt):
-            # fp32 parity: cuDNN convs default to TF32 (BASELINE.md:31-37).
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        state = dict(self.variables)
-        folded = is_folded(state)
-        if self.fold_bn and not folded:
-            state = fold_state_dict(state)
-            folded = True
-        if self.decoder == "kernel" and not folded:
-            raise ValueError("VideoSegmenter: decoder='kernel' needs a folded model; "
-                             "pass fold_bn=True or decoder='model'")
-        model = motion_seg_net(backbone_of(state), folded=folded)
-        model.load_state_dict(state)
-        model.eval().requires_grad_(False)
-        if self.decoder == "model":
-            # fp32 parameters computing in `dtype` (flax's rule: an unfolded
-            # model keeps fp32 BatchNorm statistics).
-            model.compute_dtype = self.dtype
-        else:
-            model.backbone.to(bdt)
-            fit_tensor_cores(model.backbone, self.device)
+        self._model = inference_model(self.variables, self.device, self.dtype,
+                                      self.backbone_dtype, self.fold_bn,
+                                      kernel=self.decoder == "kernel")
         # One replica per distinct device; the first device's is `_model`.
-        self._replicas = {dev: copy.deepcopy(model).to(dev) for dev in self._devices
+        self._replicas = {dev: copy.deepcopy(self._model).to(dev) for dev in self._devices
                           if dev != self.device}
-        self._model = self._replicas[self.device] = model.to(self.device)
+        self._replicas[self.device] = self._model
         self._operand_cache = OrderedDict()
         self._cache_lock = threading.Lock()
         # Every video is staged and dispatched on one thread of the engine
@@ -313,14 +286,7 @@ class VideoSegmenter:
         self._dispatcher = None
         self._seqs = itertools.count()
         if self.device.type == "cuda" and len(self._devices) == 1:
-            self._run = self._graphed(self._run)
-
-    def _graphed(self, run, wrapper=GraphedFunction):
-        """`run` (the eager body) as CUDA graphs of the engine's model: its
-        parameters are the graphs' bindings, its pool their memory."""
-        model = self._model
-        return wrapper(run, memory=model_memory(model, self.device),
-                       bindings=lambda **others: module_bindings(model))
+            self._run = model_graphs(self._run, self._model)
 
     def _chunk_plan(self, n_fwd: int):
         """Balanced forward chunking for `n_fwd` clips: n_chunks is the
@@ -338,11 +304,7 @@ class VideoSegmenter:
         return n_chunks, chunk, n_chunks * chunk
 
     def _forward(self, xs: torch.Tensor, model) -> torch.Tensor:
-        if self.decoder == "model":
-            with span("model_forward"):
-                seg, _ = model(xs)
-        else:
-            seg, _ = folded_forward(model, xs, dtype=self.dtype, with_motion=False)
+        seg, _ = forward(model, xs, self.decoder == "kernel", self.dtype, with_motion=False)
         with span("reinterp", device=seg.device):
             return torch.softmax(seg, dim=1)
 

@@ -104,22 +104,6 @@ class IrCSNBackbone(nn.Module):
         return taps
 
 
-class CSNMotionSegNet(MotionSegNet):
-    """CLAS-FV's decoder and heads over ir-CSN-152 (`MotionSegNet`): comb1
-    reads the taps' 64 + 256 + 512 + 1024 + 2048 = 3904 channels. At the
-    published widths 29,958,294 parameters."""
-
-    def __init__(self, folded: bool = False, stages=STAGES, stem_width: int = STEM_WIDTH):
-        super().__init__()
-        self.folded = folded
-        self.ir_csn_model = IrCSNBackbone(folded, stages, stem_width)
-        self._add_decoder(folded)
-
-    @property
-    def backbone(self):
-        return self.ir_csn_model
-
-
 def fold_pairs(state_dict) -> list:
     """[(layer prefix, its BatchNorm's prefix or None, that BatchNorm's
     eps)] of every conv and the fc of an unfolded CSN state dict, in its
@@ -137,3 +121,17 @@ def fold_pairs(state_dict) -> list:
         else:
             pairs.append((prefix, None, None))
     return pairs
+
+
+class CSNMotionSegNet(MotionSegNet):
+    """CLAS-FV's decoder and heads over ir-CSN-152 (`MotionSegNet`): comb1
+    reads the taps' 64 + 256 + 512 + 1024 + 2048 = 3904 channels. At the
+    published widths 29,958,294 parameters."""
+
+    name, backbone_attr, title, kinetics_init = "ir_csn_152", "ir_csn_model", "ir-CSN-152", False
+    fold_pairs = staticmethod(fold_pairs)
+
+    def __init__(self, folded: bool = False, stages=STAGES, stem_width: int = STEM_WIDTH):
+        super().__init__()
+        self.ir_csn_model = IrCSNBackbone(folded, stages, stem_width)
+        self._add_decoder(folded)

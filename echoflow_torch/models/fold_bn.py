@@ -25,11 +25,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from echoflow_torch.models.convert import _key_plan
-from echoflow_torch.models.r2plus1d import Conv3d, TemporalConv3d, backbone_of
+from echoflow_torch.models.r2plus1d import Conv3d, TemporalConv3d, backbone_of, backbones
 from echoflow_torch.utils.profiling import count
-
-_EPS = 1e-5
 
 
 def _np(v) -> np.ndarray:
@@ -40,26 +37,12 @@ def is_folded(state_dict: Mapping) -> bool:
     return not any(k.endswith("running_var") for k in state_dict)
 
 
-def _r2plus1d_pairs() -> list:
-    """[(layer prefix, its BatchNorm's prefix or None, eps)] of R(2+1)D-18
-    CLAS-FV, in `_key_plan`'s order."""
-    plan = _key_plan()
-    return [(prefix, nxt[0] if nxt[1] == "bn" else None, _EPS)
-            for (prefix, kind, _), nxt in zip(plan, plan[1:] + [(None, None, None)])
-            if kind != "bn"]
-
-
 def fold_state_dict(state_dict: Mapping) -> dict:
     """Unfolded state dict -> state dict of the folded model over the same
     backbone (`models/r2plus1d.motion_seg_net(backbone_of(state_dict),
-    folded=True)`): every (conv, BN) pair becomes a biased conv; heads and
-    fc pass through."""
-    if backbone_of(state_dict) == "ir_csn_152":
-        from echoflow_torch.models.csn import fold_pairs
-
-        pairs = fold_pairs(state_dict)
-    else:
-        pairs = _r2plus1d_pairs()
+    folded=True)`): every (conv, BN) pair of its net's `fold_pairs`
+    becomes a biased conv; heads and fc pass through."""
+    pairs = backbones()[backbone_of(state_dict)].fold_pairs(state_dict)
     out: dict = {}
     for prefix, bn_prefix, eps in pairs:
         weight = _np(state_dict[f"{prefix}.weight"]).astype(np.float32)

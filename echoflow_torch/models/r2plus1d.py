@@ -42,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from echoflow_torch.models.convert import _key_plan
 from echoflow_torch.models.fast_forward import merged_projections
 from echoflow_torch.ops import conv as conv_ops
 from echoflow_torch.ops.resize import trilinear_resize
@@ -298,10 +299,13 @@ class MotionSegNet(nn.Module):
         video (N, 3, T, H, W) float; seg (N, 2, T, H, W) float32;
         motion (N, 4, T, H, W) float32, tanh-bounded.
 
-    A subclass makes its backbone (a module whose forward returns its tap
-    feature maps, with their widths in `tap_channels`), names it
-    `backbone`, then calls `_add_decoder`: comb1 reads the taps' widths
-    summed.
+    A subclass (an entry of `backbones()` by its `name`) holds its backbone
+    (whose forward returns the taps, of widths `tap_channels`) as
+    `backbone_attr`, which prefixes its keys in a state dict, then calls
+    `_add_decoder`: comb1 reads the taps' widths summed. It also states its
+    `title`, its (conv, BatchNorm) `fold_pairs(state_dict)`
+    (`models/fold_bn.py`) and whether a torchvision Kinetics-400 checkpoint
+    can initialise it (`kinetics_init`, `models/convert.py`).
 
     The forward computes in `compute_dtype`, or, when that is None, in the
     dtype of the module's parameters. `compute_dtype=torch.bfloat16` on
@@ -317,7 +321,12 @@ class MotionSegNet(nn.Module):
     output_dtype = torch.float32
     compute_dtype = None
 
+    @property
+    def backbone(self):
+        return getattr(self, self.backbone_attr)
+
     def _add_decoder(self, folded: bool):
+        self.folded = folded
         self.comb_1_layer = Conv3d(sum(self.backbone.tap_channels), 64, 1)
         self.comb_batch_norm_1 = _bn(64, folded)
         self.comb_2_layer = Conv3d(64, 64, 1)
@@ -345,15 +354,22 @@ class MotionSegNet(nn.Module):
 class R2Plus1DMotionSegNet(MotionSegNet):
     """CLAS-FV: the decoder and heads over R(2+1)D-18 (`MotionSegNet`)."""
 
+    name, backbone_attr, title, kinetics_init = "r2plus1d_18", "r2plus1d_model", "R2+1D", True
+
     def __init__(self, folded: bool = False):
         super().__init__()
-        self.folded = folded
         self.r2plus1d_model = R2Plus1DBackbone(folded)
         self._add_decoder(folded)
 
-    @property
-    def backbone(self):
-        return self.r2plus1d_model
+    @staticmethod
+    def fold_pairs(state_dict) -> list:
+        """[(layer prefix, its BatchNorm's prefix or None, eps)] of every
+        layer but the BatchNorms, in `convert._key_plan`'s order (the same
+        for every state dict)."""
+        plan = _key_plan()
+        return [(prefix, nxt[0] if nxt[1] == "bn" else None, BN_EPS)
+                for (prefix, kind, _), nxt in zip(plan, plan[1:] + [(None, None, None)])
+                if kind != "bn"]
 
 
 @torch.no_grad()
@@ -384,33 +400,33 @@ def init_weights(model: MotionSegNet, generator: torch.Generator) -> MotionSegNe
     return model
 
 
-BACKBONES = ("r2plus1d_18", "ir_csn_152")
-# The attribute each backbone's module has in the network, which names its
-# keys in a state dict.
-_BACKBONE_MODULES = {"r2plus1d_model": "r2plus1d_18", "ir_csn_model": "ir_csn_152"}
+def backbones() -> dict:
+    """The backbones, by name: each one's net class (`MotionSegNet`), which
+    states its facts. R(2+1)D-18 first, as CLAS-FV publishes it."""
+    from echoflow_torch.models.csn import CSNMotionSegNet
+
+    return {net.name: net for net in (R2Plus1DMotionSegNet, CSNMotionSegNet)}
 
 
 def backbone_of(state_dict) -> str:
-    """The backbone (one of BACKBONES) of a state dict of `motion_seg_net`'s
-    network, folded or not, by its keys (`r2plus1d_model.*`,
-    `ir_csn_model.*`). Raises ValueError for one that names neither."""
+    """The name in `backbones()` of a state dict of `motion_seg_net`'s
+    network, folded or not, by its keys (`<backbone_attr>.*`). Raises
+    ValueError for one that names no backbone."""
+    attrs = {net.backbone_attr: name for name, net in backbones().items()}
     for key in state_dict:
-        name = _BACKBONE_MODULES.get(key.split(".", 1)[0])
+        name = attrs.get(key.split(".", 1)[0])
         if name is not None:
             return name
-    raise ValueError(f"state dict names no backbone (keys under one of {list(_BACKBONE_MODULES)})")
+    raise ValueError(f"state dict names no backbone (keys under one of {list(attrs)})")
 
 
 def motion_seg_net(backbone: str = "r2plus1d_18", folded: bool = False) -> MotionSegNet:
-    """CLAS-FV's network over `backbone` (one of BACKBONES): R(2+1)D-18, as
-    published, or ir-CSN-152 (`models/csn.py`)."""
-    if backbone == "r2plus1d_18":
-        return R2Plus1DMotionSegNet(folded)
-    if backbone == "ir_csn_152":
-        from echoflow_torch.models.csn import CSNMotionSegNet
-
-        return CSNMotionSegNet(folded=folded)
-    raise ValueError(f"unknown backbone {backbone!r}; one of {BACKBONES}")
+    """CLAS-FV's network over `backbone` (a name in `backbones()`):
+    R(2+1)D-18, as published, or ir-CSN-152 (`models/csn.py`)."""
+    nets = backbones()
+    if backbone not in nets:
+        raise ValueError(f"unknown backbone {backbone!r}; one of {tuple(nets)}")
+    return nets[backbone](folded=folded)
 
 
 def create_model(seed: int = 0, backbone: str = "r2plus1d_18") -> MotionSegNet:

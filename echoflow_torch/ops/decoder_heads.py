@@ -15,8 +15,9 @@ signature of `fused_decoder_heads`:
   - for CUDA tensors it checks device, dtype, shape and contiguity and
     launches the kernel of `csrc/decoder_heads.cu`, or raises.
 
-`decoder_heads.launches` counts kernel launches. The kernel takes fp32 in
-and out: the upsample runs on CUDA cores, comb2 on the tensor cores as
+Each launch is counted as `decoder_heads.launches` (`utils/profiling`).
+The kernel takes fp32 in and out: the upsample runs on CUDA cores, comb2
+on the tensor cores as
 3xTF32 (y and W2 each split into TF32 hi + lo, three products), which
 keeps fp32 accuracy. The Pallas kernel's bf16 operand rounding was a TPU
 MXU choice and is not carried over. The host side here cuts each output
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from echoflow_torch.ops.resize import _linear_resize_matrix_np, trilinear_resize
-from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.device import device_constant, upload
+from echoflow_torch.utils.profiling import count
 
 KERNEL_CHANNELS = 64   # the kernel is compiled for 64 -> 64 channels
 MAX_SOURCES = 5   # R(2+1)D-18 merges its five taps to four resolutions; ir-CSN-152 has five
@@ -118,7 +120,7 @@ def x_plan(xs, w_out: int, tile_w: int, cols):
     return plan
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(64)
 def _tables(sizes, out_hw, align_corners, device):
     """The kernel's device tables for sources `sizes`: y_tab (S, H, 4)
     int32, per output row the source rows (lo, hi) and the float32 bits of
@@ -215,8 +217,5 @@ def decoder_heads(projs, b1, w2, b2, ws, bs, wm=None, bm=None, out_hw=None,
             bsz, t, h_out, w_out, int(with_motion), stream)
     if err != 0:
         raise RuntimeError(f"decoder_heads kernel launch failed: CUDA error {err}")
-    decoder_heads.launches += 1
+    count("decoder_heads.launches")
     return seg, mot
-
-
-decoder_heads.launches = 0

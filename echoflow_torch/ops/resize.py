@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.device import device_constant, upload
 
 
 @functools.lru_cache(maxsize=512)
@@ -50,7 +50,7 @@ def _linear_resize_matrix_np(src_len: int, dst_len: int, align_corners: bool):
     return mat
 
 
-@functools.lru_cache(maxsize=512)
+@device_constant(512)
 def _device_matrix(src_len: int, dst_len: int, align_corners: bool,
                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     mat = torch.from_numpy(_linear_resize_matrix_np(src_len, dst_len, align_corners))

@@ -23,13 +23,11 @@ the kernels and of echoflow's "gather" backend).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from echoflow_torch.ops.warp_kernel import reference_warp_forward, warp_coords
-from echoflow_torch.utils.device import upload
+from echoflow_torch.utils.device import device_constant, upload
 
 
 def _pixel_coords(grid_x, grid_y, h, w):
@@ -56,7 +54,7 @@ def warp_nearest_border(image, grid_x, grid_y):
     return torch.gather(image.reshape(n, c, h * w), 2, idx).reshape(n, c, h, w)
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(64)
 def _base_grids(h: int, w: int, device: torch.device, dtype: torch.dtype):
     """The base grids (1, 1, W) and (1, H, 1): float64 `np.linspace(-1, 1, n)`
     cast to dtype, on device. Made once per key: a pageable host-to-device

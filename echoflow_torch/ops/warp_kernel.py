@@ -22,8 +22,8 @@ backward runs K3 and K4 per image and sums the coordinate gradients.
 
 Each wrapper computes its plain version (`reference_warp_*`) for CPU
 tensors; for CUDA tensors it checks device, dtype, shape and contiguity and
-launches its kernel of `csrc/warp.cu`, or raises. `.launches` on each
-wrapper counts its kernel launches.
+launches its kernel of `csrc/warp.cu`, or raises, and counts the launch
+as `<wrapper>.launches` (`utils/profiling.count`).
 
 K3 is deterministic, as echoflow's Pallas K3 is: a counting sort of each
 destination's sources (integer atomics only) and a pass that sums each
@@ -44,6 +44,8 @@ import ctypes
 import functools
 
 import torch
+
+from echoflow_torch.utils.profiling import count
 
 # float32 unit roundoff: the tolerance of K3 against the plain version is stated in it.
 _U32 = 2.0 ** -24
@@ -210,13 +212,13 @@ def warp_forward(image, px, py):
     n, c, h, w = _check_cuda("warp_forward", image, (px, py))
     out = torch.empty_like(image)
     _launch(_lib().echoflow_warp_forward, "warp_forward", image, px, py, out, n, c, h, w)
-    warp_forward.launches += 1
+    count("warp_forward.launches")
     return out
 
 
 def warp_forward_pair(image_a, image_b, px, py):
     """K2 for two images (N, Ca, H, W) and (N, Cb, H, W) sampled at the same
-    px, py (N, H, W): one launch (counted once in `warp_forward.launches`).
+    px, py (N, H, W): one launch (counted once as `warp_forward.launches`).
     Returns (out_a, out_b), each bitwise `reference_warp_forward` of its
     image."""
     if _is_cpu(image_a):
@@ -227,7 +229,7 @@ def warp_forward_pair(image_a, image_b, px, py):
     out_a, out_b = torch.empty_like(image_a), torch.empty_like(image_b)
     _launch(_lib().echoflow_warp_forward2, "warp_forward_pair", image_a, image_b, px, py,
             out_a, out_b, n, ca, cb, h, w)
-    warp_forward.launches += 1
+    count("warp_forward.launches")
     return out_a, out_b
 
 
@@ -243,7 +245,7 @@ def warp_image_grad(g, px, py):
                           device=g.device)
     _launch(lib.echoflow_warp_image_grad, "warp_image_grad", g, px, py, d_img, scratch,
             n, c, h, w)
-    warp_image_grad.launches += 1
+    count("warp_image_grad.launches")
     return d_img
 
 
@@ -256,13 +258,8 @@ def warp_coord_grad(image, g, px, py):
     d_py = torch.empty_like(py)
     _launch(_lib().echoflow_warp_coord_grad, "warp_coord_grad", image, g, px, py,
             d_px, d_py, n, c, h, w)
-    warp_coord_grad.launches += 1
+    count("warp_coord_grad.launches")
     return d_px, d_py
-
-
-warp_forward.launches = 0
-warp_image_grad.launches = 0
-warp_coord_grad.launches = 0
 
 
 class WarpCoords(torch.autograd.Function):

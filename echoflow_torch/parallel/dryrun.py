@@ -32,7 +32,7 @@ import torch
 from echoflow_torch.parallel.launch import run_ranks
 from echoflow_torch.parallel.mesh import shard_batch
 from echoflow_torch.train.graph import GraphedStep
-from echoflow_torch.utils import graphs
+from echoflow_torch.utils.profiling import uncounted
 
 
 def _rank_device(rank: int) -> torch.device:
@@ -140,8 +140,8 @@ class StandInGraphs(GraphedStep):
     the warm-up runs the step; the capture runs the step's Python once, as
     a capture does, and puts every tensor of the state back (a capture
     computes nothing); a replay runs the step again with the effects a
-    replay does not have taken back (the update count, the launch
-    counters), so the wrapper must do those. `calls` logs "warm-up",
+    replay does not have taken back (the update count, the counts), so the
+    wrapper must do those. `calls` logs "warm-up",
     "capture" and "replay" in order; `lrs` the LR each replay found, which
     the wrapper wrote."""
 
@@ -164,11 +164,9 @@ class StandInGraphs(GraphedStep):
         def replay():
             self.calls.append("replay")
             self.lrs.append(float(self.state.optimizer.param_groups[0]["lr"]))
-            step, counts = self.state.step, graphs._launches()
-            _fill(out, fn())
+            step = self.state.step
+            _fill(out, uncounted(fn)[0])
             self.state.step = step
-            for (mod, name), count in zip(graphs._COUNTERS, counts):
-                getattr(mod, name).launches = count
         return out, SimpleNamespace(replay=replay)
 
 

@@ -10,7 +10,11 @@ pinned buffer is kept until the copy has run by PyTorch's host allocator.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from echoflow_torch.utils.profiling import count
 
 
 def upload(host: torch.Tensor, device) -> torch.Tensor:
@@ -20,3 +24,15 @@ def upload(host: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
+
+
+def device_constant(maxsize: int):
+    """`functools.lru_cache(maxsize)` for a function that makes a constant on
+    a device, counting `device.constants` at each miss: a graph's capture
+    refuses one (`utils/graphs`), whose copy would replay a host buffer."""
+    def cached(fn):
+        def made(*args):
+            count("device.constants")
+            return fn(*args)
+        return functools.lru_cache(maxsize)(functools.wraps(fn)(made))
+    return cached

@@ -32,8 +32,10 @@ of many lengths holds a bounded number of graphs; a dropped key warms up
 and captures again. `clear()` drops them all.
 
 What the captured code does in Python happens once, at capture, and never
-at a replay: the kernels' launch counters are advanced by the wrapper (the
-counts made while capturing a graph are added at each of its replays).
+at a replay: the counts it makes (`utils/profiling.count`; a kernel
+wrapper's `<kernel>.launches`) are taken back after the capture and added
+by the wrapper at each of the graph's replays. A capture that makes a
+device constant (`utils/device.device_constant`) raises.
 The wrapper's host work runs in the spans (`utils/profiling.span`)
 `graph.warm_up`, `graph.capture`, `graph.feed` (the bindings check and the
 input copies), `graph.replay` (the launch, and what a caller writes before
@@ -61,26 +63,7 @@ from typing import Callable
 
 import torch
 
-from echoflow_torch.ops import decoder_heads as dh
-from echoflow_torch.ops import resize, warp
-from echoflow_torch.ops import warp_kernel as wk
-from echoflow_torch.utils.profiling import count, current_id, live, replay_ids, span
-
-# The kernel wrappers whose `.launches` a replay advances, by module and
-# name (looked up at each call: a caller may swap a wrapper for a while).
-_COUNTERS = ((wk, "warp_forward"), (wk, "warp_image_grad"), (wk, "warp_coord_grad"),
-             (dh, "decoder_heads"))
-# The caches of device constants a graph reads. An entry made while
-# capturing would be a host-to-device copy replayed from a host buffer.
-_CONSTANT_CACHES = (warp._base_grids, resize._device_matrix, dh._tables)
-
-
-def _launches() -> tuple:
-    return tuple(getattr(mod, name).launches for mod, name in _COUNTERS)
-
-
-def _constant_misses() -> int:
-    return sum(cache.cache_info().misses for cache in _CONSTANT_CACHES)
+from echoflow_torch.utils.profiling import count, current_id, live, replay_ids, span, uncounted
 
 
 def module_bindings(model) -> tuple:
@@ -111,7 +94,7 @@ class _Graph:
     graph: object                # what `replay()` launches (a torch.cuda.CUDAGraph)
     inputs: dict                 # the graph's static input tensors
     outputs: object              # the graph's static outputs
-    launches: tuple              # kernel launches of one replay
+    counts: dict                 # what its capture counted: added at each replay
     bindings: tuple
     ids: object                  # the slot its device spans read a replay's id from
     replays: int = field(default=0)
@@ -217,20 +200,16 @@ class _Graphs:
         return out
 
     def _record(self, key, fn, inputs: dict, bindings: Callable[[], tuple]) -> _Graph:
-        """Capture fn(static inputs) at this key. The launch counts of the
-        capture are taken back: the replay that follows adds them."""
+        """Capture fn(static inputs) at this key. The counts of the capture
+        are taken back: the replay that follows adds them."""
         with span("graph.capture"):
             static = {k: v.clone() for k, v in inputs.items()}
             ids = torch.full((1,), -1, dtype=torch.int64, device=self.memory.device)
-            launches, misses = _launches(), _constant_misses()
             with replay_ids(ids):
-                out, graph = self._capture(lambda: fn(static))
-            captured = tuple(b - a for a, b in zip(launches, _launches()))
-            if _constant_misses() != misses:
+                (out, graph), captured = uncounted(lambda: self._capture(lambda: fn(static)))
+            if "device.constants" in captured:
                 raise RuntimeError("graphed: a device constant was first made during the "
                                    "capture; the warm-up should have made it")
-            for (mod, name), n in zip(_COUNTERS, captured):
-                getattr(mod, name).launches -= n
             entry = _Graph(graph, static, out, captured, bindings(), ids)
         count("graph.captures")
         self.warmed.pop(key, None)
@@ -263,8 +242,8 @@ class _Graphs:
             entry.graph.replay()
         entry.replays += 1
         count("graph.replays")
-        for (mod, name), n in zip(_COUNTERS, entry.launches):
-            getattr(mod, name).launches += n
+        for k, n in entry.counts.items():
+            count(k, n)
 
     @staticmethod
     def _outputs(entry: _Graph, id=None):
@@ -333,3 +312,12 @@ class GraphedFunction(_Graphs):
             self._feed(entry, tensors, bindings)
         self._launch(entry)
         return self._outputs(entry)
+
+
+def model_graphs(fn, model, wrapper=GraphedFunction):
+    """`fn` as CUDA graphs of `model` (a `GraphedFunction`, or a `wrapper`
+    of its signature): the model's parameters and buffers are the graphs'
+    bindings, its pool their memory."""
+    device = next(model.parameters()).device
+    return wrapper(fn, memory=model_memory(model, device),
+                   bindings=lambda **others: module_bindings(model))

@@ -15,9 +15,9 @@ whose only instrumentation is wall-clock prints).
   `state.step`).
 - `record(name, id, start_ns, end_ns)` keeps a host span timed by its
   caller: a wait that starts on one thread and ends on another.
-- `count(name, n=1)` adds to in-memory counters, always on; `counters()`
-  reads them with the kernels' `.launches` (through
-  `utils/graphs._COUNTERS`, never counted here a second time).
+- `count(name, n=1)` adds to in-memory counters, always on (the kernel
+  wrappers count their launches as `<kernel>.launches`); `counters()`
+  reads them; `uncounted(fn)` takes back the counts `fn` made.
 - `spans()` gives the last session's host and device spans and the
   counters' growth over it; `trace(log_dir)` records a torch.profiler
   session and writes its Chrome trace and `spans.json` beside it.
@@ -313,14 +313,20 @@ def count(name: str, n: int = 1):
 
 
 def counters() -> dict:
-    """The counters' totals, and each kernel wrapper's `.launches`."""
-    from echoflow_torch.utils import graphs
-
+    """The counters' totals."""
     with _TRACER.lock:
-        out = dict(_TRACER.counts)
-    for mod, name in graphs._COUNTERS:
-        out[f"{name}.launches"] = getattr(mod, name).launches
-    return out
+        return dict(_TRACER.counts)
+
+
+def uncounted(fn):
+    """(fn(), the counts made while it ran, on any thread), those counts
+    taken back: a graph's capture gives them to its replays."""
+    before = counters()
+    out = fn()
+    made = {k: n - before.get(k, 0) for k, n in counters().items() if n != before.get(k, 0)}
+    for k, n in made.items():
+        count(k, -n)
+    return out, made
 
 
 def _paired(entries, names, ring) -> list:

@@ -29,6 +29,8 @@ DEVICES = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
 
 def parse_args(argv=None):
+    from echoflow_torch.models.r2plus1d import backbones
+
     ap = argparse.ArgumentParser(
         description="Segment and motion track heart structure in an Echo Video")
     ap.add_argument("-p", "--path", required=True, type=str, help="Path to the video")
@@ -50,7 +52,7 @@ def parse_args(argv=None):
     ap.add_argument("-c", "--content", required=False, type=str, default="binary",
                     help="gif, binary, binary_video, all (comma-separated)")
     ap.add_argument("--backbone", required=False, type=str, default="r2plus1d_18",
-                    choices=["r2plus1d_18", "ir_csn_152"],
+                    choices=list(backbones()),
                     help="the backbone of the seeded network run when no weights are "
                          "found: CLAS-FV's R(2+1)D-18 (default) or ir-CSN-152 under the "
                          "same decoder (a checkpoint's keys name its own)")
@@ -153,16 +155,16 @@ def run(video, args):
     from echoflow_torch.infer.ef import compute_ef_using_putative_clips
     from echoflow_torch.infer.pipeline import VideoSegmenter
     from echoflow_torch.models.fold_bn import is_folded
-    from echoflow_torch.models.r2plus1d import backbone_of, motion_seg_net, param_count
+    from echoflow_torch.models.r2plus1d import backbone_of, backbones, param_count
 
     device = resolve_device(args.device)
     state = load_weights(args.model, args.backbone)
     backbone = backbone_of(state)   # a checkpoint's own, whatever --backbone says
     if args.verbose:
-        model = motion_seg_net(backbone, folded=is_folded(state))
+        net = backbones()[backbone]
+        model = net(folded=is_folded(state))
         model.load_state_dict(state)
-        name = {"r2plus1d_18": "R2+1D", "ir_csn_152": "ir-CSN-152"}[backbone]
-        print(f"{name} MotionNet has {param_count(model)} parameters.")
+        print(f"{net.title} MotionNet has {param_count(model)} parameters.")
 
     segmenter = VideoSegmenter(state, device=device, **precision_policy(args.precision))
     segmentations = segmenter.segment_video(

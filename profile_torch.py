@@ -119,6 +119,7 @@ from chip_smoke import count_syncs, main_path_videos, nvidia_smi_line, smoke_wei
 from echoflow_torch.data.synthetic import make_beating_video
 from echoflow_torch.infer.pipeline import VideoSegmenter, _unpackbits
 from echoflow_torch.ops import _build
+from echoflow_torch.utils.profiling import counters
 
 RANGE_PREFIX = "echoflow_torch."
 UNATTRIBUTED = "(outside any range)"
@@ -181,7 +182,6 @@ def top_kernels(kernels, n=12):
 
 def profile_train(out_path=None, compute_dtype="fp32", remat=False):
     """One full-width fused train step under the profiler."""
-    from echoflow_torch.ops import warp_kernel as wk
     from echoflow_torch.train.loop import (TrainConfig, create_train_state, make_train_step,
                                            prefetch_to_device)
     from train_clasfv_torch import synthetic_batches
@@ -197,8 +197,8 @@ def profile_train(out_path=None, compute_dtype="fp32", remat=False):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches0 = (wk.warp_forward.launches, wk.warp_image_grad.launches,
-                 wk.warp_coord_grad.launches)
+    warps = ("warp_forward", "warp_image_grad", "warp_coord_grad")
+    launches0 = counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, metrics = step(state, batches[2])
@@ -206,9 +206,9 @@ def profile_train(out_path=None, compute_dtype="fp32", remat=False):
         wall_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     assert np.isfinite(float(metrics["loss"]))
-    launches = [b - a for a, b in zip(launches0, (wk.warp_forward.launches,
-                                                  wk.warp_image_grad.launches,
-                                                  wk.warp_coord_grad.launches))]
+    launches1 = counters()
+    launches = [launches1.get(f"{k}.launches", 0) - launches0.get(f"{k}.launches", 0)
+                for k in warps]
     _, syncs = count_syncs(lambda: step(state, batches[3]))
     graph = profile_graphed_step(state, make_train_step(fused_ota=True, remat=remat), batches)
     layers, kernels = split_device_time(prof, TRAIN_KERNELS, "train.backward")

@@ -17,6 +17,7 @@ from echoflow.infer import clips as JC
 
 from echoflow_torch.infer import clips as TC
 from echoflow_torch.models.convert import state_dict_from_variables
+from echoflow_torch.utils.graphs import model_graphs
 from tests.test_torch_clips import TOL, _clips, weights  # noqa: F401 (a fixture)
 from tests.test_torch_graph import _CpuFunctionGraphs
 
@@ -32,7 +33,8 @@ def test_graphed_clip_forward_is_the_eager_forward(weights, fold_bn):  # noqa: F
     assert not isinstance(eager._forward, _CpuFunctionGraphs)   # the CPU runs it eagerly
     ref = eager(clips)
     port = TC.ClipForward(state, device="cpu", forward_chunk=2, fold_bn=fold_bn)
-    port._forward = graphed = port._graphed(port._forward, wrapper=_CpuFunctionGraphs)
+    port._forward = graphed = model_graphs(port._forward, port._model,
+                                          wrapper=_CpuFunctionGraphs)
     calls = [port(clips) for _ in range(3)]
     # Chunks of 2: warm-up, capture, replays; the last chunk of 1: warm-up
     # at the first call, capture at the second.

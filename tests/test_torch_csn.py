@@ -298,3 +298,57 @@ def test_the_folded_engine_segments_as_the_unfolded_model():
     assert masks[0].shape == (32, 112, 112)
     assert 0.05 < masks[0].mean() < 0.95
     assert np.array_equal(masks[0], masks[1])
+
+
+def test_the_folded_clip_forward_labels_as_the_unfolded_model():
+    """`ClipForward` over an ir-CSN-152 state dict at the published widths
+    on the CPU: its folded forward with the decoder tail's plain version
+    (`fold_bn=True`, the default) gives the argmax labels of the unfolded
+    network's own forward, bit for bit, and its motion within 1e-5. The seg
+    head is scaled as in the engine's test above."""
+    from echoflow_torch.infer.clips import ClipForward
+
+    state = create_model(seed=4, backbone="ir_csn_152").state_dict()
+    state["segmentation_head.weight"] = state["segmentation_head.weight"] * 300.0
+    video = np.random.RandomState(1).rand(3, 32, 112, 112).astype(np.float32)
+    labels, _, motion = ClipForward(state, device="cpu", forward_chunk=1) \
+        .segment_start_points(video, [0])
+    model = motion_seg_net("ir_csn_152")
+    model.load_state_dict(state)
+    with torch.no_grad():
+        seg, want_motion = model.eval()(torch.from_numpy(video[None]))
+    assert labels.shape == (1, 32, 112, 112)
+    assert 0.05 < labels.mean() < 0.95
+    assert np.array_equal(labels, seg.argmax(dim=1).numpy().astype(np.uint8))
+    np.testing.assert_allclose(motion, want_motion.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["unfolded", "folded"])
+def test_every_backbone_of_the_table_builds_and_names_itself(folded):
+    """Each entry of `backbones()` builds its own net class by its name,
+    whose state dict `backbone_of` names back, and whose `backbone` is the
+    module its keys are under."""
+    from echoflow_torch.models.r2plus1d import backbone_of, backbones
+
+    for name, net in backbones().items():
+        with torch.device("meta"):
+            model = motion_seg_net(name, folded=folded)
+        assert type(model) is net and net.name == name and model.folded == folded
+        assert backbone_of(model.state_dict()) == name
+        assert model.backbone is getattr(model, net.backbone_attr)
+
+
+@pytest.mark.parametrize("cli", ["motion_segment_torch", "train_clasfv_torch"])
+def test_both_clis_offer_exactly_the_tables_backbones(cli, capsys):
+    """`--backbone` of both CLIs offers the names of `backbones()`, and no
+    other."""
+    import importlib
+    import re
+
+    from echoflow_torch.models.r2plus1d import backbones
+
+    module = importlib.import_module(cli)
+    with pytest.raises(SystemExit):
+        module.parse_args(["--help"])
+    offered = re.search(r"--backbone \{([^}]*)\}", capsys.readouterr().out).group(1)
+    assert offered.split(",") == list(backbones())

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from echoflow_torch.ops.decoder_heads import decoder_heads, reference_decoder_heads
+from echoflow_torch.utils.profiling import counters
 
 SHAPES = dict(b1=(64,), w2=(64, 64), b2=(64,), ws=(64, 2), bs=(2,), wm=(64, 4), bm=(4,))
 
@@ -23,6 +24,11 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _launched(kernel: str) -> int:
+    """The launches of a kernel wrapper counted so far (`<kernel>.launches`)."""
+    return counters().get(f"{kernel}.launches", 0)
+
+
 def _k1_inputs(sizes, bt=(2, 32), scale=1.0, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     projs = [torch.randn(*bt, s, s, 64, device="cuda", generator=g) * (0.2 * scale)
@@ -32,11 +38,11 @@ def _k1_inputs(sizes, bt=(2, 32), scale=1.0, seed=0):
 
 
 def _check_k1(projs, w, out_hw, with_motion=True, align_corners=True):
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     seg, mot = decoder_heads(projs, **w, out_hw=out_hw, with_motion=with_motion,
                              align_corners=align_corners)
     torch.cuda.synchronize()
-    assert decoder_heads.launches == before + 1
+    assert _launched("decoder_heads") == before + 1
     rseg, rmot = reference_decoder_heads(projs, **w, out_hw=out_hw, with_motion=with_motion,
                                          align_corners=align_corners)
     # fp32 on both sides (comb2 as 3xTF32 on the tensor cores); the
@@ -105,10 +111,10 @@ def test_decoder_heads_rejects_a_fifth_source(cuda):
     fifth that it now takes, is refused before any launch."""
     p = [torch.zeros(1, 2, s, s, 64, device="cuda") for s in (56, 28, 14, 7, 4, 2)]
     w = {k: torch.zeros(*s, device="cuda") for k, s in SHAPES.items()}
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     with pytest.raises(ValueError, match="1..5 sources"):
         decoder_heads(p, **w, out_hw=(112, 112))
-    assert decoder_heads.launches == before
+    assert _launched("decoder_heads") == before
 
 
 @pytest.mark.cuda
@@ -123,13 +129,13 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
                                seed=1).video.astype(np.uint8)
     gpu = VideoSegmenter(state, dtype=torch.float32, bucket=32, forward_chunk=4)
     cpu = VideoSegmenter(state, device="cpu", bucket=32, forward_chunk=4)
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     for method in ("majority", "simple", "softmax"):
         a = gpu.segment_video(video, num_clips=2, step=1, fuse_method=method)
         b = cpu.segment_video(video, num_clips=2, step=1, fuse_method=method)
         # argmax near-ties between two fp32 backends may flip a pixel.
         assert (a != b).mean() <= 1e-3
-    assert decoder_heads.launches > before
+    assert _launched("decoder_heads") > before
 
 
 # Odd and training shapes. C = 1-4 reach the compiled channel counts of K3
@@ -178,15 +184,15 @@ def test_warp_kernels_match_plain(cuda, shape, motion):
     from echoflow_torch.ops import warp_kernel as wk
 
     image, grad, px, py = _warp_inputs(shape, motion=motion)
-    before = (wk.warp_forward.launches, wk.warp_image_grad.launches,
-              wk.warp_coord_grad.launches)
+    before = (_launched("warp_forward"), _launched("warp_image_grad"),
+              _launched("warp_coord_grad"))
     out = wk.warp_forward(image, px, py)
     d_img = wk.warp_image_grad(grad, px, py)
     d_img2 = wk.warp_image_grad(grad, px, py)
     d_px, d_py = wk.warp_coord_grad(image, grad, px, py)
     torch.cuda.synchronize()
-    assert (wk.warp_forward.launches, wk.warp_image_grad.launches,
-            wk.warp_coord_grad.launches) == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert (_launched("warp_forward"), _launched("warp_image_grad"),
+            _launched("warp_coord_grad")) == (before[0] + 1, before[1] + 2, before[2] + 1)
     assert torch.equal(out, wk.reference_warp_forward(image, px, py))
     r_px, r_py = wk.reference_warp_coord_grad(image, grad, px, py)
     assert torch.equal(d_px, r_px) and torch.equal(d_py, r_py)
@@ -221,13 +227,13 @@ def test_warp_autograd_launches_each_kernel_only_when_needed(cuda):
     image, grad, px, py = _warp_inputs((2, 3, 16, 16))
     px.requires_grad_()
     py.requires_grad_()
-    before = wk.warp_image_grad.launches, wk.warp_coord_grad.launches
+    before = _launched("warp_image_grad"), _launched("warp_coord_grad")
     (wk.warp_coords(image, px, py) * grad).sum().backward()   # image needs no grad
-    assert (wk.warp_image_grad.launches, wk.warp_coord_grad.launches) == \
+    assert (_launched("warp_image_grad"), _launched("warp_coord_grad")) == \
         (before[0], before[1] + 1)
     image.requires_grad_()
     (wk.warp_coords(image, px, py) * grad).sum().backward()
-    assert (wk.warp_image_grad.launches, wk.warp_coord_grad.launches) == \
+    assert (_launched("warp_image_grad"), _launched("warp_coord_grad")) == \
         (before[0] + 1, before[1] + 2)
 
 
@@ -262,10 +268,10 @@ def test_warp_forward_pair_matches_plain(cuda, shape, channels, motion):
     image_a, _, px, py = _warp_inputs((n, channels[0], h, w), motion=motion)
     image_b = torch.rand((n, channels[1], h, w), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(5))
-    before = wk.warp_forward.launches
+    before = _launched("warp_forward")
     out_a, out_b = wk.warp_forward_pair(image_a, image_b, px, py)
     torch.cuda.synchronize()
-    assert wk.warp_forward.launches == before + 1
+    assert _launched("warp_forward") == before + 1
     assert torch.equal(out_a, wk.reference_warp_forward(image_a, px, py))
     assert torch.equal(out_b, wk.reference_warp_forward(image_b, px, py))
 
@@ -276,7 +282,7 @@ def test_warp_forward_pair_rejects_what_it_cannot_take(cuda):
 
     image, _, px, py = _warp_inputs((2, 4, 8, 8))
     video = torch.rand(2, 3, 8, 8, device="cuda")
-    before = wk.warp_forward.launches
+    before = _launched("warp_forward")
     for bad in (torch.rand(3, 3, 8, 8, device="cuda"),    # N
                 torch.rand(2, 3, 9, 8, device="cuda"),    # H
                 torch.rand(2, 3, 8, 7, device="cuda"),    # W
@@ -290,7 +296,7 @@ def test_warp_forward_pair_rejects_what_it_cannot_take(cuda):
         wk.warp_forward_pair(image, video, px[:1], py[:1])
     with pytest.raises(ValueError):
         wk.warp_forward_pair(image, video.cpu(), px, py)
-    assert wk.warp_forward.launches == before
+    assert _launched("warp_forward") == before
 
 
 @pytest.mark.cuda
@@ -308,8 +314,8 @@ def test_warp_coords_pair_autograd_launches_and_gradients(cuda):
     for pair in (True, False):
         lab = label.clone().requires_grad_()
         x, y = px.clone().requires_grad_(), py.clone().requires_grad_()
-        before = (wk.warp_forward.launches, wk.warp_image_grad.launches,
-                  wk.warp_coord_grad.launches)
+        before = (_launched("warp_forward"), _launched("warp_image_grad"),
+                  _launched("warp_coord_grad"))
         if pair:
             out_a, out_b = wk.warp_coords_pair(lab, video, x, y)
         else:
@@ -317,7 +323,7 @@ def test_warp_coords_pair_autograd_launches_and_gradients(cuda):
         ((out_a * grad).sum() + (out_b * g_b).sum()).backward()
         torch.cuda.synchronize()
         counts = tuple(b - a for a, b in zip(before, (
-            wk.warp_forward.launches, wk.warp_image_grad.launches, wk.warp_coord_grad.launches)))
+            _launched("warp_forward"), _launched("warp_image_grad"), _launched("warp_coord_grad"))))
         runs.append((counts, out_a.detach(), out_b.detach(), lab.grad, x.grad, y.grad))
     (c_pair, *got), (c_two, *want) = runs
     assert c_pair == (1, 1, 2) and c_two == (2, 1, 2)
@@ -385,10 +391,10 @@ def test_train_step_on_the_card_matches_the_cpu_port(cuda):
     for dev in ("cuda", "cpu"):
         cfg = TrainConfig(clip_length=t, image_size=(h, h), batch_size=n)
         state = create_train_state(3, cfg, device=dev)
-        before = wk.warp_forward.launches
+        before = _launched("warp_forward")
         state, m = make_train_step()(state, {k: v.to(dev) for k, v in batch.items()})
         if dev == "cuda":   # one pair launch per chain step
-            assert wk.warp_forward.launches == before + (t - 1)
+            assert _launched("warp_forward") == before + (t - 1)
         out[dev] = (float(m["loss"]), {k: p.grad.detach().double().cpu()
                                        for k, p in state.model.named_parameters()})
     (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
@@ -522,9 +528,9 @@ def test_graphed_engine_is_bitwise_the_eager_engine(cuda, dtype):
     eager._run = eager._run.__wrapped__
     want = list(eager.segment_videos(videos, num_clips=5, step=1))
     engine = VideoSegmenter(state, dtype=dtype)
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     got = list(engine.segment_videos(videos, num_clips=5, step=1, queue_depth=3))
-    assert decoder_heads.launches - before == len(videos)
+    assert _launched("decoder_heads") - before == len(videos)
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
@@ -548,11 +554,11 @@ def test_graphed_clip_forward_is_bitwise_the_eager_one(cuda):
     eager._forward = eager._forward.__wrapped__
     want = eager(clips)
     fwd = ClipForward(state, forward_chunk=2)
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     for _ in range(3):
         for a, b in zip(fwd(clips), want):
             assert np.array_equal(a, b)
-    assert decoder_heads.launches - before == 9
+    assert _launched("decoder_heads") - before == 9
     assert len(fwd._forward.graphs) == 2
 
 
@@ -579,9 +585,9 @@ def test_clip_forward_on_the_card_matches_its_plain_path(cuda):
     video = zeroone_normalizer(make_beating_video(num_frames=40, seed=3).video.copy())
     clips = np.stack([video[:, s:s + 32] for s in range(5)])
     fwd = ClipForward(state, forward_chunk=2)
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     probs, motion = fwd(clips)
-    assert decoder_heads.launches == before + 3
+    assert _launched("decoder_heads") == before + 3
     assert float(np.abs(motion).max()) > 0.1
     for other in (ClipForward(state, forward_chunk=2, fold_bn=False),
                   ClipForward(state, device="cpu", forward_chunk=2)):
@@ -618,10 +624,10 @@ def test_bilinear_rollout_on_the_card_is_bitwise_plain(cuda, monkeypatch):
     calls = ((lambda: deform_forback(ed, es, motion, mode="bilinear"), 2 * (t - 1)),
              (lambda: deform_images_forback(images, motion), 1 + (t - 1)))
     for fn, launches in calls:
-        before = wk.warp_forward.launches
+        before = _launched("warp_forward")
         got = fn()
         torch.cuda.synchronize()
-        assert wk.warp_forward.launches == before + launches
+        assert _launched("warp_forward") == before + launches
         with monkeypatch.context() as m:
             m.setattr(wk, "warp_forward", wk.reference_warp_forward)
             want = fn()
@@ -649,11 +655,11 @@ def test_sharded_engine_dispatch_makes_no_host_sync(cuda):
     video = make_beating_video(num_frames=80, seed=1).video.astype(np.uint8)
     want = single.segment_video(video, num_clips=3, step=1)
     sharded.segment_video(video, num_clips=3, step=1)
-    before = decoder_heads.launches
+    before = _launched("decoder_heads")
     pending, (length, width) = _no_sync(lambda: sharded.segment_video_async(
         video, num_clips=3, step=1))
     got = _unpackbits(pending.numpy(), width)[:length]
-    assert decoder_heads.launches - before == 2   # one chunk of 6 clips, two shards
+    assert _launched("decoder_heads") - before == 2   # one chunk of 6 clips, two shards
     assert float((got != want).mean()) <= 1e-4
 
 
@@ -739,10 +745,8 @@ def _graph_setup(n_batches, batch_size=2, lr_drop_step=2, remat=False):
 
 
 def _launches():
-    from echoflow_torch.ops import warp_kernel as wk
-
-    return np.array([wk.warp_forward.launches, wk.warp_image_grad.launches,
-                     wk.warp_coord_grad.launches])
+    return np.array([_launched("warp_forward"), _launched("warp_image_grad"),
+                     _launched("warp_coord_grad")])
 
 
 def _run_steps(cfg, batches, factory, graph):
@@ -1206,10 +1210,10 @@ def test_graphed_rollouts_are_bitwise_the_eager_ones(cuda):
         results = []
         for scale in (1.0, 1.0, 0.5):
             fn, args, kw, launches = call(i, scale)
-            before = wk.warp_forward.launches
+            before = _launched("warp_forward")
             got = fn(*args, **kw)
             torch.cuda.synchronize()
-            assert wk.warp_forward.launches == before + launches
+            assert _launched("warp_forward") == before + launches
             results.append((got, fn.__wrapped__(*args, **kw)))
         for got, want in results:   # each still its own after the later replays
             assert all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(want)))

@@ -36,6 +36,7 @@ from echoflow_torch.ops.decoder_heads import (
     x_plan,
 )
 from echoflow_torch.ops.resize import _linear_resize_matrix_np
+from echoflow_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -96,10 +97,11 @@ def test_plain_matches_pallas_interpret(specs, with_motion):
 def test_wrapper_on_cpu_is_the_plain_version():
     projs, w = _inputs(2, SPECS[0])
     tp, tw = _torch(projs, w)
-    before = decoder_heads.launches
+    before = counters().get("decoder_heads.launches", 0)
     got = decoder_heads(tp, **tw, out_hw=(32, 32))
     want = reference_decoder_heads(tp, **tw, out_hw=(32, 32))
-    assert decoder_heads.launches == before   # nothing launched on the CPU
+    # nothing launched on the CPU
+    assert counters().get("decoder_heads.launches", 0) == before
     for g, r in zip(got, want):
         assert torch.equal(g, r)
 
@@ -183,7 +185,8 @@ def test_module_imports_without_triton_or_nvcc(tmp_path):
         "w = [torch.zeros(8), torch.zeros(8, 8), torch.zeros(8), torch.zeros(8, 2), torch.zeros(2)]\n"
         "seg, mot = decoder_heads(p, *w, out_hw=(8, 8))\n"
         "assert seg.shape == (1, 2, 8, 8, 2) and mot is None\n"
-        "assert not _build._libs and decoder_heads.launches == 0\n"
+        "from echoflow_torch.utils.profiling import counters\n"
+        "assert not _build._libs and 'decoder_heads.launches' not in counters()\n"
     )
     env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path / "none"),
            "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent.parent)}

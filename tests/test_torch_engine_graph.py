@@ -22,6 +22,7 @@ from echoflow.infer import pipeline as JP
 
 from echoflow_torch.infer import pipeline as TP
 from echoflow_torch.models.convert import state_dict_from_variables
+from echoflow_torch.utils.graphs import model_graphs
 from tests.test_torch_graph import _CpuFunctionGraphs
 from tests.test_torch_pipeline import METHODS, _video, shared_weights  # noqa: F401 (a fixture)
 
@@ -39,7 +40,7 @@ def _engines(weights, **kw):
     eager = TP.VideoSegmenter(state, device="cpu", forward_chunk=4, bucket=32, **kw)
     port = TP.VideoSegmenter(state, device="cpu", forward_chunk=4, bucket=32, **kw)
     assert not isinstance(port._run, _CpuFunctionGraphs)    # the CPU runs the eager body
-    port._run = graphed = port._graphed(port._run, wrapper=_CpuFunctionGraphs)
+    port._run = graphed = model_graphs(port._run, port._model, wrapper=_CpuFunctionGraphs)
     return eager, port, graphed
 
 

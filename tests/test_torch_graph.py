@@ -22,12 +22,12 @@ import torch
 from echoflow.train.loop import TrainConfig as JaxConfig
 from echoflow.train.loop import lr_schedule as jax_lr_schedule
 from echoflow_torch.ops import warp
-from echoflow_torch.ops import warp_kernel as wk
 from echoflow_torch.train import graph
 from echoflow_torch.train.loop import (TrainConfig, TrainState, _apply_update,
                                        compiled_steps, create_train_state, fit, lr_schedule,
                                        make_eval_step, make_train_step)
 from echoflow_torch.utils import graphs
+from echoflow_torch.utils.profiling import count, counters, uncounted
 
 LR, DROP, LR_AFTER = 1e-3, 2, 1e-4
 
@@ -133,7 +133,7 @@ class _Step:
         self.batch = batch
         if self.runs == self.new_constant_at:
             warp._base_grids(100 + self.runs, 7, torch.device("cpu"), torch.float32)
-        wk.warp_forward.launches += 2
+        count("warp_forward.launches", 2)
         metrics = {"loss": batch["x"].sum()}
         if not self.train:
             return metrics
@@ -182,11 +182,12 @@ def test_warm_up_then_capture_then_replays():
     step = _Step()
     g = _CpuGraphs(step, state)
     lr = state.optimizer.param_groups[0]["lr"]
-    wk.warp_forward.launches = 0
+    before = counters().get("warp_forward.launches", 0)
     for k in range(5):
         batch = _x(seed=k)
         state, m = g(state, batch)
-        assert state.step == k + 1 and wk.warp_forward.launches == 2 * (k + 1)
+        assert state.step == k + 1
+        assert counters()["warp_forward.launches"] - before == 2 * (k + 1)
         assert float(m["loss"]) == pytest.approx(float(batch["x"].sum()))
         if k >= 1:   # a replay: the LR of update k
             assert float(lr) == pytest.approx(LR if k < DROP else LR_AFTER, rel=1e-6)
@@ -347,8 +348,8 @@ class _CpuFunctionGraphs(graphs.GraphedFunction):
     """`GraphedFunction` taking CPU tensors for CUDA ones, its capture stood
     in for: the capture runs the function's Python once and puts the
     `held()` tensors back (a capture computes nothing); a replay runs it
-    again with the launch counters taken back, so the wrapper must advance
-    them."""
+    again with its counts taken back (`utils/profiling.uncounted`), so the
+    wrapper must add them."""
 
     def __init__(self, fn, memory=None, bindings=lambda **others: (), held=list):
         super().__init__(fn, memory=graphs._Memory(torch.device("cpu")), bindings=bindings)
@@ -372,10 +373,7 @@ class _CpuFunctionGraphs(graphs.GraphedFunction):
                 t.copy_(v)
 
         def replay():
-            counts = graphs._launches()
-            _fill(out, fn())
-            for (mod, name), count in zip(graphs._COUNTERS, counts):
-                getattr(mod, name).launches = count
+            _fill(out, uncounted(fn)[0])
         return out, SimpleNamespace(replay=replay)
 
 
@@ -432,19 +430,21 @@ def test_graphed_rollouts_equal_the_eager_rollouts(name):
     assert len(fn.graphs) == before == 0 and fn.signature == g.signature
 
 
-def test_a_function_graph_advances_the_launch_counters():
-    """A replay adds the launches its capture made (here 3 of K2 a call),
-    and the result is a copy of the graph's output, not the output."""
+@pytest.mark.parametrize("counter", ["warp_forward.launches", "t.unnamed_kernel.launches"])
+def test_a_function_graph_advances_the_launch_counters(counter):
+    """A replay adds the counts its capture made (here 3 launches a call,
+    of K2 or of a kernel that `utils/graphs` never names), and the result
+    is a copy of the graph's output, not the output."""
     def fn(x, scale):
-        wk.warp_forward.launches += 3
+        count(counter, 3)
         return x * scale
 
     g = _CpuFunctionGraphs(fn)
-    wk.warp_forward.launches = 0
+    before = counters().get(counter, 0)
     outs = []
     for k in range(4):
         outs.append(g(torch.full((2,), float(k)), scale=2.0))
-        assert wk.warp_forward.launches == 3 * (k + 1)
+        assert counters()[counter] - before == 3 * (k + 1)
     static = next(iter(g.graphs.values())).outputs
     assert [float(o[0]) for o in outs] == [0.0, 2.0, 4.0, 6.0]
     assert all(o.data_ptr() != static.data_ptr() for o in outs)

@@ -29,6 +29,7 @@ from echoflow_torch.infer.pipeline import VideoSegmenter
 from echoflow_torch.models.r2plus1d import create_model
 from echoflow_torch.train.loop import prefetch_to_device
 from echoflow_torch.utils import profiling
+from echoflow_torch.utils.graphs import model_graphs
 from echoflow_torch.utils.profiling import count, counters, record, span, spans
 from portbench import harness
 from portbench.trace import Trace
@@ -206,7 +207,7 @@ def test_engine_spans_and_operand_counters(engine_state):
     the stage runs on the dispatch thread and holds the graph's spans; the
     operand cache counts a miss for each new length and a hit after."""
     engine = VideoSegmenter(engine_state, device="cpu", forward_chunk=4, bucket=32)
-    engine._run = engine._graphed(engine._run, wrapper=_CpuFunctionGraphs)
+    engine._run = model_graphs(engine._run, engine._model, wrapper=_CpuFunctionGraphs)
     videos = [make_beating_video(num_frames=n, height=32, width=32, period=20.0,
                                  seed=1).video.astype(np.uint8) for n in (40, 44, 40)]
     before = counters()

@@ -34,6 +34,8 @@ _SAMPLE_CACHE: dict = {}
 
 
 def parse_args(argv=None):
+    from echoflow_torch.models.r2plus1d import backbones
+
     ap = argparse.ArgumentParser(description="Train CLAS-FV with echoflow_torch")
     ap.add_argument("--data", type=str, default=None, help="EchoNet-Dynamic root")
     ap.add_argument("--folds", type=str, default=None,
@@ -60,7 +62,7 @@ def parse_args(argv=None):
                          "end-metric study, benchmarks/bf16_train_study.json: ES Dice "
                          "0.0056 below fp32)")
     ap.add_argument("--image-size", type=int, default=112)
-    ap.add_argument("--backbone", choices=["r2plus1d_18", "ir_csn_152"], default="r2plus1d_18",
+    ap.add_argument("--backbone", choices=list(backbones()), default="r2plus1d_18",
                     help="the network's backbone: CLAS-FV's R(2+1)D-18 (default) or "
                          "ir-CSN-152 (Tran et al. 2019) under the same decoder and heads")
     ap.add_argument("--out", type=str, default="save_models/clasfv_torch.pth")
@@ -276,9 +278,11 @@ def main(argv=None):
         if args.resume:
             raise SystemExit("--init-from and --resume are mutually exclusive "
                              "(resume already carries weights)")
-        if args.backbone != "r2plus1d_18":
-            raise SystemExit("--init-from takes a torchvision r2plus1d_18 checkpoint")
         from echoflow_torch.models.convert import load_kinetics_backbone
+        from echoflow_torch.models.r2plus1d import backbones
+
+        if not backbones()[args.backbone].kinetics_init:
+            raise SystemExit("--init-from takes a torchvision r2plus1d_18 checkpoint")
 
         state.model.load_state_dict(load_kinetics_backbone(args.init_from,
                                                            state.model.state_dict()))
