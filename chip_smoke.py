@@ -150,8 +150,10 @@ Phases (any failure raises and the script exits nonzero):
      launch in an eager step; (b) the engine through its graphs (the default on one
      card) against its eager body (`_run.__wrapped__`) on phase 4's three
      videos, fp32 and bf16: masks bitwise, K1's launches by counter (3)
-     and by name, no wait in a replayed dispatch, frames/s of each, a
-     profiled pass's busy time and idle share, captures, memory reserved;
+     and by name, in bf16 no NCHW<->NHWC transpose of cuDNN in the
+     profiled pass (its backbone is channels-last-3d,
+     `fold_bn.channels_last`), no wait in a replayed dispatch, frames/s
+     of each, a profiled pass's busy time and idle share, captures, memory reserved;
      then a seeded stream of 12 videos of 100-300 frames: keys, warm-ups,
      captures, replays, wall time against eager; (c) `ClipForward`'s
      graphs on phase 7's 16 clips against its eager forward: bitwise, K1
@@ -1749,18 +1751,19 @@ def _sci(values):
     return "[" + ", ".join(f"{v:.2e}" for v in values) + "]"
 
 
-def profile_replay(call):
+def profile_replay(call, watch=("nccl",)):
     """One `call()` (a replay of a graph, or an eager call to compare)
     under torch.profiler: wall ms, the device's busy ms, the launches of
     K1, K2, K3 (both its kernels) and K4 by kernel name (KERNEL_NAMES), and
-    the device events whose name holds "nccl", by name."""
+    the device events whose name holds one of `watch` (lower case), by
+    name."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy, names, nccl = 0.0, collections.Counter(), collections.Counter()
+    busy, names, watched = 0.0, collections.Counter(), collections.Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CPU or \
                 evt.name.startswith("echoflow_torch."):
@@ -1769,9 +1772,9 @@ def profile_replay(call):
         for short in KERNEL_NAMES:
             if short in evt.name:
                 names[short] += 1
-        if "nccl" in evt.name.lower():
-            nccl[evt.name.split("(")[0][:60]] += 1
-    return wall, busy, tuple(names[n] for n in KERNEL_NAMES), nccl
+        if any(w in evt.name.lower() for w in watch):
+            watched[evt.name.split("(")[0][:60]] += 1
+    return wall, busy, tuple(names[n] for n in KERNEL_NAMES), watched
 
 
 def step_tolerances(dtype):
@@ -2482,6 +2485,7 @@ def phase_graphed_camus():
 # the inference engine and `ClipForward`, as CUDA graphs.
 REPEAT_RUNS = 2        # eager runs of phase 12's recipe compared in each setting
 STREAM_VIDEOS = 12     # 14b's stream of mixed lengths
+LAYOUT_TRANSPOSES = ("nchwtonhwc", "nhwctonchw")   # cuDNN's layout kernels, lower case
 STREAM_LENGTHS = (100, 300)
 CHILD_TIMEOUT_S = 600  # the fresh process of phase 14a
 # The cost line: phase 12's graphed step on the parent's route (every conv
@@ -2855,7 +2859,8 @@ def phase_engine_graphs(main_run):
     """Phase 14b: the engine on phase 4's three videos through its graphs
     against the eager body (`_run.__wrapped__`), fp32 and the bf16 default:
     masks bitwise, K1's launches by counter (3, the capture's and two
-    replays) and by name in a profiled pass, no wait in a replayed
+    replays) and by name in a profiled pass, in bf16 no cuDNN layout
+    transpose (LAYOUT_TRANSPOSES) in that pass, no wait in a replayed
     dispatch, frames/s of each (in turns), a profiled pass's busy time and
     idle share, captures and the memory reserved; then a seeded stream of
     STREAM_VIDEOS mixed lengths (bf16 default) through a fresh engine of
@@ -2885,20 +2890,23 @@ def phase_engine_graphs(main_run):
             times[kind].append(sec)
             if not all(np.array_equal(a, b) for a, b in zip(got, eager_masks)):
                 bad.append(f"{name}: a timed {kind} pass differs")
-        wall, busy, named, _ = profile_replay(lambda: _engine_pass(engine, videos))
+        wall, busy, named, transposes = profile_replay(lambda: _engine_pass(engine, videos),
+                                                       watch=LAYOUT_TRANSPOSES)
         _, error = sync_error(lambda: engine.segment_video_async(videos[1], num_clips=5, step=1,
                                                                  fuse_method="simple"))
         bitwise = all(np.array_equal(a, b) for a, b in zip(masks, eager_masks))
         fps = {k: frames / statistics.median(v) for k, v in times.items()}
         res = out[name] = dict(
-            bitwise=bitwise, k1_launches=k1, k1_by_name=named[0], sync_error=error,
+            bitwise=bitwise, k1_launches=k1, k1_by_name=named[0],
+            layout_transposes=sum(transposes.values()), sync_error=error,
             frames_per_s=fps, seconds=times, replay_wall_ms=wall, replay_busy_ms=busy,
             replay_idle_share=1.0 - busy / wall, captures=counts["captures"],
             warm_ups=counts["warm_ups"], graphs=len(engine._run.graphs),
             reserved_gib={"eager": reserved_eager / 2**30, "graphed": reserved_graphed / 2**30})
         log(f"engine graphs ({name}): masks bitwise the eager body's {bitwise}; K1 launches "
             f"{k1} (counter, 3 videos; the capture's and two replays'), {named[0]} by name in a "
-            f"profiled pass; waits in a replayed dispatch: {0 if error is None else error}; "
+            f"profiled pass; NCHW<->NHWC transposes there {dict(transposes)}; waits in a "
+            f"replayed dispatch: {0 if error is None else error}; "
             f"frames/s eager {fps['eager']:.1f}, graphed {fps['graphed']:.1f} (median of 2 "
             f"passes each, in turns, host clock, {frames} frames); a profiled "
             f"graphed pass: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle "
@@ -2906,7 +2914,7 @@ def phase_engine_graphs(main_run):
             f"{counts['captures']}; reserved GiB after eager {res['reserved_gib']['eager']:.3f}, "
             f"with the graphed engine {res['reserved_gib']['graphed']:.3f}")
         if not bitwise or k1 != len(videos) or named[0] != len(videos) or error is not None \
-                or counts["captures"] != 1:
+                or counts["captures"] != 1 or (name == "bf16" and transposes):
             bad.append(name)
         del eager, engine, eager_masks, masks
     gc.collect()
@@ -3077,6 +3085,8 @@ def main():
         "engine_graph_launches": {k: engine_graphs[k]["k1_launches"] for k in ("fp32", "bf16")},
         "engine_graph_launches_by_name": {k: engine_graphs[k]["k1_by_name"]
                                           for k in ("fp32", "bf16")},
+        "engine_graph_layout_transposes": {k: engine_graphs[k]["layout_transposes"]
+                                           for k in ("fp32", "bf16")},
         "clip_graph_launches": clip_graphs["k1_launches"],
     }]
     replaces = {"warp_forward": "echoflow/ops/pallas/warp_kernel.py:67",

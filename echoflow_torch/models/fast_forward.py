@@ -15,7 +15,7 @@ import torch
 
 from echoflow_torch.ops.decoder_heads import decoder_heads
 from echoflow_torch.ops.resize import linear_resize_matrix, resize_linear
-from echoflow_torch.utils.profiling import span
+from echoflow_torch.utils.profiling import count, span
 
 
 def merged_projections(taps, comb1_weight: torch.Tensor, dtype=torch.float32):
@@ -23,7 +23,8 @@ def merged_projections(taps, comb1_weight: torch.Tensor, dtype=torch.float32):
     (sum of the taps' C -> 64; the backbone's `tap_channels`) to a
     channels-last (N, T, H, W, 64) projection, and sum projections that
     share a resolution (exact: upsampling is linear). Returns the
-    projections ordered by first appearance."""
+    projections ordered by first appearance. A channels-last-3d tap is
+    read in place, as a (NTHW, C) matrix."""
     w = comb1_weight.reshape(comb1_weight.shape[0], -1).to(dtype)   # (64, sum of C)
     projs: dict = {}
     offset = 0
@@ -34,6 +35,16 @@ def merged_projections(taps, comb1_weight: torch.Tensor, dtype=torch.float32):
         projs[shape] = proj if shape not in projs else projs[shape] + proj
         offset += ch
     return list(projs.values())
+
+
+def backbone_input(backbone, video):
+    """`video` in the dtype and the memory layout of `backbone`'s stem
+    weight: channels-last-3d for a backbone fitted so
+    (`fold_bn.channels_last`), one copy a chunk; else as it is."""
+    w = backbone.stem[0].weight
+    layout = (torch.channels_last_3d if w.is_contiguous(memory_format=torch.channels_last_3d)
+              else torch.contiguous_format)
+    return video.to(w.dtype, memory_format=layout)
 
 
 def decoder_weights(model):
@@ -50,16 +61,20 @@ def decoder_weights(model):
 def folded_forward(model, video, *, dtype=torch.float32, with_motion=True):
     """video (N, 3, T, H, W) -> (seg (N, 2, T, H, W), motion (N, 4, T, H, W)
     or None), both float32. `model` must be folded; its backbone runs in the
-    dtype of its own parameters (the engine casts it once for a bf16
-    backbone), the projections in `dtype`, the decoder tail in float32.
-    Each of the three runs in a device span (`utils/profiling.span`):
-    backbone, projections, decoder_tail."""
+    dtype and layout of its own parameters (the engine casts it once for a
+    bf16 backbone; `backbone_input`), the projections in `dtype`, the
+    decoder tail in float32. Each of the three runs in a device span
+    (`utils/profiling.span`): backbone, projections, decoder_tail. A
+    forward whose five taps all come out channels-last-3d counts
+    `backbone.channels_last`."""
     if not model.folded:
         raise ValueError("folded_forward needs a folded model (models/fold_bn.py)")
     t, h, w = video.shape[2:]
     backbone = model.backbone
     with span("backbone", device=video.device):
-        taps = backbone(video.to(backbone.stem[0].weight.dtype))
+        taps = backbone(backbone_input(backbone, video))
+    if all(tap.is_contiguous(memory_format=torch.channels_last_3d) for tap in taps):
+        count("backbone.channels_last")
     with span("projections", device=video.device):
         projs = merged_projections(taps, model.comb_1_layer.weight, dtype)
         # The kernel upsamples H/W; the cheap low-resolution T resize runs

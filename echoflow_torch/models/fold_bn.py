@@ -13,8 +13,10 @@ BatchNorm with its own eps, the depthwise convs included.
 
 For cuDNN's 16-bit tensor-core convs, `fit_tensor_cores` changes a folded
 backbone on the card, leaving its function as it is: `pad_widths`
-zero-pads its inner widths that are not a multiple of 8, and
-`temporal_convs_as_2d` runs its (k, 1, 1) convs as 2D convs.
+zero-pads its inner widths that are not a multiple of 8,
+`temporal_convs_as_2d` runs its (k, 1, 1) convs as 2D convs, and
+`channels_last` keeps its weights, and so its activations, in
+`torch.channels_last_3d` (NDHWC), the layout of cuDNN's 16-bit kernels.
 """
 
 from __future__ import annotations
@@ -141,15 +143,37 @@ def temporal_convs_as_2d(backbone: nn.Module) -> int:
     return n
 
 
+def channels_last(backbone: nn.Module) -> bool:
+    """Put every conv weight of `backbone` in `torch.channels_last_3d`
+    (NDHWC) if all its convs are one-group; returns whether it did.
+
+    cuDNN's 16-bit tensor-core convs read and write NHWC: on NCDHW
+    operands each conv transposes its input and weight in and its output
+    back out (`nchwToNhwcKernel`, `nhwcToNchwKernel`), 27% of the bf16
+    engine's device time on an H100 at R(2+1)D-18. With the weights
+    channels-last, cuDNN's output is channels-last, and so is every
+    activation after it: residual adds and in-place ReLUs keep the layout,
+    and a `TemporalConv3d`'s (N, C, T, H*W) view of a channels-last-3d
+    tensor is 2D channels-last. Its input is laid out the same way once
+    (`fast_forward.backbone_input`). A depthwise conv (ir-CSN-152) runs on
+    aten's `conv_depthwise3d`, which wants NCDHW: a backbone that has one
+    is left as it is."""
+    if any(isinstance(m, nn.Conv3d) and m.groups != 1 for m in backbone.modules()):
+        return False
+    backbone.to(memory_format=torch.channels_last_3d)
+    return True
+
+
 def fit_tensor_cores(backbone: nn.Module, device) -> int:
     """For a folded backbone whose parameters are bf16 or fp16 and that
-    runs on CUDA: `pad_widths`, counted as `engine.padded_widths`, and
-    `temporal_convs_as_2d`; returns the pairs padded. Elsewhere (fp32, the
-    CPU) 0, and the backbone is left as it is."""
+    runs on CUDA: `pad_widths`, counted as `engine.padded_widths`,
+    `temporal_convs_as_2d` and `channels_last`; returns the pairs padded.
+    Elsewhere (fp32, the CPU) 0, and the backbone is left as it is."""
     dtype = next(backbone.parameters()).dtype
     if torch.device(device).type != "cuda" or dtype not in (torch.bfloat16, torch.float16):
         return 0
     n = pad_widths(backbone)
     count("engine.padded_widths", n)
     temporal_convs_as_2d(backbone)
+    channels_last(backbone)
     return n

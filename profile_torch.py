@@ -71,7 +71,8 @@ With --backbone-convs it times the forward of every distinct conv of the
 engine's folded R(2+1)D-18 backbone in `--dtype`, at the engine's chunk
 shape (30 clips x 3 x 32 x 112 x 112), in each of four variants: as
 folded ("folded"), after `models/fold_bn.pad_widths` ("padded"), after
-`fold_bn.temporal_convs_as_2d` ("temporal_2d"), and after both, as the
+`fold_bn.temporal_convs_as_2d` ("temporal_2d"), and after both and
+`fold_bn.channels_last`, its weights and inputs channels-last-3d, as the
 16-bit engine runs it ("engine"); and the padded stem's (1,7,7) conv once
 more with its 3 input channels zero-padded to 8 ("stem_in8"). A
 geometry is (input shape, weight shape, stride, padding); each row gives
@@ -570,9 +571,10 @@ def folded_backbone(dtype, variant):
     """The engine's folded R(2+1)D-18 backbone (seeded weights) in `dtype`
     on the card: as folded, with its widths padded (`fold_bn.pad_widths`),
     with its temporal convs as 2D convs (`fold_bn.temporal_convs_as_2d`),
-    or with both, as the engine runs it in 16 bits (`variant`, one of
-    BACKBONE_VARIANTS)."""
-    from echoflow_torch.models.fold_bn import fold_state_dict, pad_widths, temporal_convs_as_2d
+    or with both and channels-last-3d (`fold_bn.channels_last`), as the
+    engine runs it in 16 bits (`variant`, one of BACKBONE_VARIANTS)."""
+    from echoflow_torch.models.fold_bn import (channels_last, fold_state_dict, pad_widths,
+                                               temporal_convs_as_2d)
     from echoflow_torch.models.r2plus1d import R2Plus1DMotionSegNet, create_model
 
     model = R2Plus1DMotionSegNet(folded=True)
@@ -582,6 +584,8 @@ def folded_backbone(dtype, variant):
         pad_widths(backbone)
     if variant in ("temporal_2d", "engine"):
         temporal_convs_as_2d(backbone)
+    if variant == "engine":
+        channels_last(backbone)
     return backbone.cuda()
 
 
@@ -614,6 +618,8 @@ def profile_backbone_convs(out_path=None, dtype="bfloat16"):
     """`--backbone-convs`: see the module docstring."""
     import torch.nn as nn
 
+    from echoflow_torch.models.fast_forward import backbone_input
+
     dt = getattr(torch, dtype)
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -627,9 +633,10 @@ def profile_backbone_convs(out_path=None, dtype="bfloat16"):
         def record(mod, args):
             shapes[names[mod]] = tuple(args[0].shape)
 
+        xb = backbone_input(backbone, x)
         hooks = [m.register_forward_pre_hook(record) for m in convs.values()]
         with torch.no_grad():
-            backbone(x)
+            backbone(xb)
         for h in hooks:
             h.remove()
         if variant == "stem_in8":   # the stem alone, its input zero-padded to 8
@@ -642,8 +649,8 @@ def profile_backbone_convs(out_path=None, dtype="bfloat16"):
             convs, shapes = {"stem.0": wide}, {"stem.0": (ENGINE_CHUNK, 8, *x.shape[2:])}
         else:
             with torch.no_grad():
-                whole[variant] = dict(ms=_event_ms(lambda: backbone(x)),
-                                      kernels_ms=_kernels_ms(lambda: backbone(x)))
+                whole[variant] = dict(ms=_event_ms(lambda: backbone(xb)),
+                                      kernels_ms=_kernels_ms(lambda: backbone(xb)))
         geometries = {}
         for name, m in convs.items():
             key = (shapes[name], tuple(m.weight.shape), m.stride, m.padding)
@@ -652,6 +659,8 @@ def profile_backbone_convs(out_path=None, dtype="bfloat16"):
         for (xs, ws, stride, padding), modules in geometries.items():
             conv = convs[modules[0]]
             xi = torch.rand(xs, device="cuda", generator=g).to(dt)
+            if variant == "engine":
+                xi = xi.contiguous(memory_format=torch.channels_last_3d)
             with torch.no_grad():
                 out = conv(xi)
                 gmac = out.numel() // out.shape[1] * ws[0] * int(np.prod(ws[1:])) / 1e9

@@ -1539,13 +1539,22 @@ def test_bf16_engine_backbone_runs_on_bf16_tensor_cores(cuda):
     fallback (`f32f32` in its name) and no `convertTensor` cast; the
     unfitted backbone's forward launches both (a conv of 144 channels,
     already a multiple of 8, at 32 x 56 x 56: the widths alone do not
-    cause it). `ClipForward` in bf16 is fitted the same way."""
+    cause it). The fitted backbone's weights and five taps are
+    channels-last-3d, and its forward on its input as the engine lays it
+    out (`fast_forward.backbone_input`) launches no NCHW<->NHWC transpose
+    of cuDNN (`nchwToNhwc`, `nhwcToNchw`); the unfitted one transposes
+    around every conv. `ClipForward` in bf16 is fitted the same way."""
     from echoflow_torch.infer.clips import ClipForward
     from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.fast_forward import backbone_input
     from echoflow_torch.models.fold_bn import fold_state_dict
     from echoflow_torch.models.r2plus1d import (R2Plus1DMotionSegNet, TemporalConv3d,
                                                 create_model)
     from echoflow_torch.utils.profiling import counters
+
+    def channels_last(backbone):
+        return all(m.weight.is_contiguous(memory_format=torch.channels_last_3d)
+                   for m in backbone.modules() if isinstance(m, torch.nn.Conv3d))
 
     torch.backends.cudnn.allow_tf32 = False
     state = create_model(seed=3).state_dict()
@@ -1553,9 +1562,11 @@ def test_bf16_engine_backbone_runs_on_bf16_tensor_cores(cuda):
     fitted = VideoSegmenter(state, dtype=torch.bfloat16)._model.backbone
     assert counters().get("engine.padded_widths", 0) - before == 7
     assert sum(isinstance(m, TemporalConv3d) for m in fitted.modules()) == 17
+    assert channels_last(fitted)
     clips = ClipForward(state, dtype=torch.bfloat16)
     assert counters().get("engine.padded_widths", 0) - before == 14
     assert sum(isinstance(m, TemporalConv3d) for m in clips._model.modules()) == 17
+    assert channels_last(clips._model.backbone)
     folded = R2Plus1DMotionSegNet(folded=True)
     folded.load_state_dict(fold_state_dict(state))
     unfitted = folded.backbone.eval().requires_grad_(False).cuda()
@@ -1565,7 +1576,10 @@ def test_bf16_engine_backbone_runs_on_bf16_tensor_cores(cuda):
         want = [t.float() for t in unfitted(video)]      # fp32
         unfitted.to(torch.bfloat16)
         plain = [t.float() for t in unfitted(video.bfloat16())]
-        got = [t.float() for t in fitted(video.bfloat16())]
+        taps = fitted(backbone_input(fitted, video))
+        assert all(t.is_contiguous(memory_format=torch.channels_last_3d) for t in taps)
+        got = [t.float() for t in taps]
+        del taps
     for i, (g, p, w) in enumerate(zip(got, plain, want)):
         e_plain, e_fit, apart = _rel_l2(p, w), _rel_l2(g, w), _rel_l2(g, p)
         print(f"tap {i}: plain bf16 {e_plain:.3e}, fitted {e_fit:.3e} from fp32; "
@@ -1573,7 +1587,7 @@ def test_bf16_engine_backbone_runs_on_bf16_tensor_cores(cuda):
         assert 0 < e_plain < 0.05 and e_fit <= 1.25 * e_plain and apart <= 2 * e_plain, i
 
     def kernels(backbone):
-        x = video.bfloat16()
+        x = backbone_input(backbone, video)
         with torch.no_grad():
             backbone(x)
             torch.cuda.synchronize()
@@ -1583,8 +1597,38 @@ def test_bf16_engine_backbone_runs_on_bf16_tensor_cores(cuda):
                 torch.cuda.synchronize()
         return {e.name for e in p.events() if e.device_type != torch.autograd.DeviceType.CPU}
 
+    def transposes(names):
+        return [k for k in names if "nchwToNhwc" in k or "nhwcToNchw" in k]
+
     names = kernels(fitted)
     assert any("bf16bf16" in k for k in names), sorted(names)
     assert not [k for k in names if "f32f32" in k or "convertTensor" in k]
+    assert not transposes(names), sorted(names)
     names = kernels(unfitted)
     assert any("f32f32" in k for k in names) and any("convertTensor" in k for k in names)
+    assert transposes(names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,channels_last", [(torch.bfloat16, True), (torch.float32, False)],
+                         ids=["bf16", "fp32"])
+def test_channels_last_counter_grows_once_a_bf16_forward_chunk(cuda, dtype, channels_last):
+    """`backbone.channels_last` (`fast_forward.folded_forward`) over a
+    graphed `VideoSegmenter` on two 176-frame videos, 5 shifts: in bf16 it
+    grows by the forward chunks, which K1's launches count (one a chunk),
+    captured counts replayed with their graph; in fp32, whose backbone
+    stays NCDHW, by 0."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.r2plus1d import create_model
+
+    engine = VideoSegmenter(create_model(seed=1).state_dict(), dtype=dtype)
+    videos = [make_beating_video(num_frames=176, period=40.0, seed=i).video.astype(np.uint8)
+              for i in range(2)]
+    before, k1 = counters().get("backbone.channels_last", 0), _launched("decoder_heads")
+    for _ in range(2):   # the capture, then a replay
+        list(engine.segment_videos(videos, num_clips=5, step=1))
+    chunks = _launched("decoder_heads") - k1
+    assert chunks >= 4
+    assert counters().get("backbone.channels_last", 0) - before == (chunks if channels_last
+                                                                    else 0)
