@@ -158,9 +158,16 @@ Phases (any failure raises and the script exits nonzero):
      captures, replays, wall time against eager; (c) `ClipForward`'s
      graphs on phase 7's 16 clips against its eager forward: bitwise, K1
      at 2, ms of each. Phases 4, 7 and 8 run the graphed engine and
-     `ClipForward` (their defaults; the CLI's one video is a warm-up).
+     `ClipForward` (their defaults; the CLI's one video is a warm-up);
+ 15. CLAS-FV over Video Swin-B: (a) the attention route against its plain
+     version at stage 3's shape, forward and backward, three calls
+     bitwise; (b) three graphed fp32 train steps at full width
+     (stochastic depth from the state's generator) twice from one seed,
+     the same bits, 24 attention launches a step; (c) the fp32 engine's
+     graphs against its eager body, masks bitwise.
 
-Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, and as
+Prints the nvidia-smi line, then one JSON line {"kernels": [...], "swin":
+{...}}, and as
 the last line {"ok": true, "device": {...}}.
 """
 
@@ -2981,6 +2988,100 @@ def phase_clip_graphs():
     return {"bitwise": bitwise, "k1_launches": k1, "ms": ms, "times_ms": times}
 
 
+def phase_swin():
+    """Phase 15: CLAS-FV over Video Swin-B. (a) the attention route
+    (`ops/attention.window_attention`, stage 3's shape at batch 4, shifted
+    windows) against autograd of its plain version, forward and backward,
+    and three calls bitwise; its forward-and-backward ms by CUDA events.
+    (b) three graphed fp32 train steps at full width
+    (`create_train_state(backbone="swin3d_b")`, stochastic depth 0.3 from
+    the state's generator, registered with the graph) twice from one seed:
+    the same SHA-256 of the parameters; 24 attention launches a step by
+    the counter (the warm-up, the capture's replay, a replay); the ms of a
+    replay. (c) the fp32 engine over a Swin state dict: its graphs against
+    its eager body, masks bitwise, 24 attention launches a forward chunk."""
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.swin3d import bias_indices, clipped, shift_mask
+    from echoflow_torch.ops.attention import (gathered_bias, plain_window_attention,
+                                              window_attention)
+    from echoflow_torch.train.loop import TrainConfig, compiled_steps, create_train_state
+    from train_clasfv_torch import synthetic_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    windows, heads, n, c = 8, 16, 392, 512
+    window, shift = clipped((16, 7, 7), (8, 7, 7), (4, 3, 3))
+    mask = shift_mask((16, 7, 7), window, shift, device, torch.float32)
+    index, rows = bias_indices((8, 7, 7), n, device)
+    qkv = torch.randn(windows, n, 3 * c, device="cuda", generator=g, requires_grad=True)
+    table = (torch.randn(2535, heads, device="cuda", generator=g) * 0.02).requires_grad_(True)
+    dout = torch.randn(windows, n, c, device="cuda", generator=g)
+
+    def route():
+        out = window_attention(qkv, table, heads, index, rows, mask)
+        return (out.detach(), *torch.autograd.grad(out, (qkv, table), dout))
+
+    runs = [route() for _ in range(3)]
+    repeats = all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+    out = plain_window_attention(qkv, gathered_bias(table, index, n), heads, mask)
+    want = (out.detach(), *torch.autograd.grad(out, (qkv, table), dout))
+    rel = [float((a.double() - b.double()).norm() / b.double().norm())
+           for a, b in zip(runs[0], want)]
+    route_ms = cuda_ms(route, reps=10)
+    del qkv, table, dout, runs, want, out
+
+    def graphed_run():
+        state = create_train_state(0, TrainConfig(backbone="swin3d_b"), device="cuda")
+        step = compiled_steps(state)[0]
+        counts = []
+        for batch in synthetic_batches(4, 32, 112, 3, seed=0):
+            batch = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in batch.items()}
+            before = _launched("swin.attention")
+            state, _ = step(state, batch)
+            counts.append(_launched("swin.attention") - before)
+        replay_ms = cuda_ms(lambda: step(state, batch), reps=5)
+        h = hashlib.sha256()
+        for p in state.model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return h.hexdigest(), counts, replay_ms
+
+    (sha_a, counts, replay_ms), (sha_b, _, _) = graphed_run(), graphed_run()
+
+    state = create_model(seed=4, backbone="swin3d_b").state_dict()
+    state["segmentation_head.weight"] = state["segmentation_head.weight"] * 300.0
+    video = make_beating_video(num_frames=64, period=30.0, seed=1).video.astype(np.uint8)
+    graphed_engine = VideoSegmenter(state, device="cuda", dtype=torch.float32)
+    eager = VideoSegmenter(state, device="cuda", dtype=torch.float32)
+    eager._run = eager._run.__wrapped__
+    want_mask = eager.segment_video(video, num_clips=5)
+    graphed_engine.segment_video(video, num_clips=5)
+    before = _launched("swin.attention")
+    got_mask = graphed_engine.segment_video(video, num_clips=5)
+    engine_launches = _launched("swin.attention") - before
+    engine_bitwise = np.array_equal(got_mask, want_mask)
+    del graphed_engine, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"swin: attention route vs plain (rel L2 out, dqkv, dtable) {rel}, repeats {repeats}, "
+        f"{route_ms:.2f} ms forward and backward (stage 3, batch 4); graphed steps SHA "
+        f"{sha_a[:12]} / {sha_b[:12]}, attention launches a step {counts}, a replay "
+        f"{replay_ms:.1f} ms; engine graphs bitwise {engine_bitwise}, attention launches "
+        f"{engine_launches}")
+    if not (repeats and max(rel) <= 1e-5 and sha_a == sha_b and counts == [24, 24, 24]
+            and engine_bitwise and engine_launches == 24):
+        raise AssertionError(f"swin: rel {rel}, repeats {repeats}, SHA equal {sha_a == sha_b}, "
+                             f"counts {counts}, engine bitwise {engine_bitwise}, "
+                             f"launches {engine_launches}")
+    return {"attention_rel": rel, "attention_repeats": repeats, "attention_ms": route_ms,
+            "graphed_repeat": sha_a == sha_b, "launches": counts, "replay_ms": replay_ms,
+            "engine_bitwise": engine_bitwise, "engine_launches": engine_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3034,6 +3135,7 @@ def main():
     repeat = timed("14a", phase_repeatable_training, graphs, camus, camus_graphs)
     engine_graphs = timed("14b", phase_engine_graphs, main_run)
     clip_graphs = timed("14c", phase_clip_graphs)
+    swin = timed("15", phase_swin)
     log(f"seconds by phase: {seconds}")
 
     main_variant = k1[False]
@@ -3170,7 +3272,7 @@ def main():
         + f"; clip forward ms eager / graphed {clip_graphs['ms']['eager']:.1f} / "
         f"{clip_graphs['ms']['graphed']:.1f} ({smi})")
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "swin": swin}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -16,7 +16,7 @@ import torch
 
 from echoflow_torch.models.fast_forward import folded_forward
 from echoflow_torch.models.fold_bn import fit_tensor_cores, fold_state_dict, is_folded
-from echoflow_torch.models.r2plus1d import backbone_of, motion_seg_net
+from echoflow_torch.models.r2plus1d import backbone_of, backbones, motion_seg_net
 from echoflow_torch.utils.profiling import span
 
 
@@ -25,7 +25,8 @@ def inference_model(variables: dict, device, dtype, backbone_dtype=None, fold_bn
     """The eval-mode, no-grad network of the state dict `variables` on
     `device` (module docstring). A state dict without BN statistics is
     taken as folded; `fold_bn` folds one that has them. `backbone_dtype`
-    None is `dtype`."""
+    None is `dtype`. A backbone that runs in fp32 only (Video Swin-B,
+    `sixteen_bit`) raises ValueError for a 16-bit one."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (pass device='cpu' to run on the CPU)")
@@ -34,6 +35,11 @@ def inference_model(variables: dict, device, dtype, backbone_dtype=None, fold_bn
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     state = dict(variables)
+    name = backbone_of(state)
+    if (backbone_dtype in (torch.bfloat16, torch.float16)
+            and not backbones()[name].sixteen_bit):
+        raise ValueError(f"the {name} backbone runs in fp32 only (dtype=torch.float32); "
+                         f"a 16-bit engine cannot take it")
     folded = is_folded(state)
     if fold_bn and not folded:
         state = fold_state_dict(state)
@@ -41,7 +47,7 @@ def inference_model(variables: dict, device, dtype, backbone_dtype=None, fold_bn
     if kernel and not folded:
         raise ValueError("the decoder-tail kernel needs a folded model; pass fold_bn=True "
                          "or forward with the module")
-    model = motion_seg_net(backbone_of(state), folded=folded)
+    model = motion_seg_net(name, folded=folded)
     model.load_state_dict(state)
     model.eval().requires_grad_(False)
     if kernel:

@@ -1,8 +1,8 @@
 """Inference fast path: folded forward with the decoder-tail kernel (port of
 `echoflow.models.fast_forward`).
 
-`folded_forward` computes what a folded `MotionSegNet` (`R2Plus1DMotionSegNet`
-or `CSNMotionSegNet` with `folded=True`) computes
+`folded_forward` computes what a folded `MotionSegNet` (`R2Plus1DMotionSegNet`,
+`CSNMotionSegNet` or `SwinMotionSegNet` with `folded=True`) computes
 (backbone, same-resolution-merged tap projections, decoder, heads), but
 runs the decoder tail through `ops/decoder_heads.decoder_heads`: the CUDA
 kernel on the card, its plain version on the CPU. `plain_decoder` is the
@@ -38,10 +38,11 @@ def merged_projections(taps, comb1_weight: torch.Tensor, dtype=torch.float32):
 
 
 def backbone_input(backbone, video):
-    """`video` in the dtype and the memory layout of `backbone`'s stem
-    weight: channels-last-3d for a backbone fitted so
-    (`fold_bn.channels_last`), one copy a chunk; else as it is."""
-    w = backbone.stem[0].weight
+    """`video` in the dtype and the memory layout of `backbone`'s first
+    weight (its stem's, or its patch embedding's): channels-last-3d for a
+    backbone fitted so (`fold_bn.channels_last`), one copy a chunk; else
+    as it is."""
+    w = next(backbone.parameters())
     layout = (torch.channels_last_3d if w.is_contiguous(memory_format=torch.channels_last_3d)
               else torch.contiguous_format)
     return video.to(w.dtype, memory_format=layout)

@@ -43,8 +43,11 @@ def fold_state_dict(state_dict: Mapping) -> dict:
     """Unfolded state dict -> state dict of the folded model over the same
     backbone (`models/r2plus1d.motion_seg_net(backbone_of(state_dict),
     folded=True)`): every (conv, BN) pair of its net's `fold_pairs`
-    becomes a biased conv; heads and fc pass through."""
+    becomes a biased conv; heads and fc pass through, as does every other
+    entry that is not a BatchNorm's (Video Swin-B's LayerNorms and bias
+    tables)."""
     pairs = backbones()[backbone_of(state_dict)].fold_pairs(state_dict)
+    norms = {k[:-len(".running_var")] for k in state_dict if k.endswith(".running_var")}
     out: dict = {}
     for prefix, bn_prefix, eps in pairs:
         weight = _np(state_dict[f"{prefix}.weight"]).astype(np.float32)
@@ -60,6 +63,9 @@ def fold_state_dict(state_dict: Mapping) -> dict:
         out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
         if bias is not None:
             out[f"{prefix}.bias"] = torch.from_numpy(np.asarray(_np(bias), np.float32))
+    for key, value in state_dict.items():
+        if key not in out and key.rsplit(".", 1)[0] not in norms:
+            out[key] = torch.from_numpy(np.array(_np(value), np.float32))
     return out
 
 

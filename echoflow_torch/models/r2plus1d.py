@@ -305,7 +305,13 @@ class MotionSegNet(nn.Module):
     `_add_decoder`: comb1 reads the taps' widths summed. It also states its
     `title`, its (conv, BatchNorm) `fold_pairs(state_dict)`
     (`models/fold_bn.py`) and whether a torchvision Kinetics-400 checkpoint
-    can initialise it (`kinetics_init`, `models/convert.py`).
+    can initialise it (`kinetics_init`, `models/convert.py`). A backbone
+    with its own init rule has an `init_backbone(generator)` method
+    (`init_weights`); one that runs in fp32 alone (no 16-bit engine
+    backbone, no bf16 train step) states `sixteen_bit = False`
+    (`infer/model.inference_model`, `train/loop.create_train_state`), and one
+    whose training forward draws random numbers reads them from
+    `generator` (the train state's).
 
     The forward computes in `compute_dtype`, or, when that is None, in the
     dtype of the module's parameters. `compute_dtype=torch.bfloat16` on
@@ -320,6 +326,9 @@ class MotionSegNet(nn.Module):
 
     output_dtype = torch.float32
     compute_dtype = None
+    sixteen_bit = True
+    generator = None
+    draws = False       # whether the training forward draws from `generator`
 
     @property
     def backbone(self):
@@ -379,11 +388,20 @@ def init_weights(model: MotionSegNet, generator: torch.Generator) -> MotionSegNe
     Kaiming-normal fan_out for every conv (out channels x kernel volume,
     as torch counts it for a grouped conv too), the motion head
     N(0, sqrt(1e-5)), comb1 uniform with variance 1/(3 fan_in) and zero
-    bias, BNs identity, the unused fc zero."""
+    bias, BNs identity, the unused fc zero. A net with `init_backbone`
+    (Video Swin-B) draws its backbone by that rule first, and the rule
+    above covers its decoder."""
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
 
+    own = getattr(model, "init_backbone", None)
+    skip = set()
+    if own is not None:
+        own(generator)
+        skip = set(model.backbone.modules())
     for mod in model.modules():
+        if mod in skip:
+            continue
         if isinstance(mod, nn.Conv3d):
             fan_out = mod.out_channels * math.prod(mod.kernel_size)
             normal_(mod.weight, math.sqrt(2.0 / fan_out))
@@ -404,8 +422,9 @@ def backbones() -> dict:
     """The backbones, by name: each one's net class (`MotionSegNet`), which
     states its facts. R(2+1)D-18 first, as CLAS-FV publishes it."""
     from echoflow_torch.models.csn import CSNMotionSegNet
+    from echoflow_torch.models.swin3d import SwinMotionSegNet
 
-    return {net.name: net for net in (R2Plus1DMotionSegNet, CSNMotionSegNet)}
+    return {net.name: net for net in (R2Plus1DMotionSegNet, CSNMotionSegNet, SwinMotionSegNet)}
 
 
 def backbone_of(state_dict) -> str:
@@ -422,7 +441,8 @@ def backbone_of(state_dict) -> str:
 
 def motion_seg_net(backbone: str = "r2plus1d_18", folded: bool = False) -> MotionSegNet:
     """CLAS-FV's network over `backbone` (a name in `backbones()`):
-    R(2+1)D-18, as published, or ir-CSN-152 (`models/csn.py`)."""
+    R(2+1)D-18, as published, ir-CSN-152 (`models/csn.py`) or Video
+    Swin-B (`models/swin3d.py`)."""
     nets = backbones()
     if backbone not in nets:
         raise ValueError(f"unknown backbone {backbone!r}; one of {tuple(nets)}")

@@ -238,7 +238,8 @@ def geometry_class(weight_shape, stride, transposed, groups=1):
 # From `profile_torch.py --convs` on an NVIDIA H100 80GB HBM3 at 700 W:
 # milliseconds summed over the class's calls in one fp32 step (CLAS-FV at
 # 4 x 3 x 32 x 112 x 112; CAMUS at 4 x 1 x 64 x 64, its calls in a run of
-# three steps; ir-CSN-152's step with `--conv-models csn`), cuDNN's default / its deterministic engine / the candidate
+# three steps; ir-CSN-152's step with `--conv-models csn`; Video Swin-B's
+# patch embedding by a probe of its dW at 4 x 3 x 32 x 112 x 112), cuDNN's default / its deterministic engine / the candidate
 # route ("subpixel" for dx, "gemm" for dW), "*" where the default engine
 # gave other bits in three calls on the same inputs. A class whose default
 # repeats keeps it; the others take their cheapest route that repeats.
@@ -265,6 +266,10 @@ ROUTES = {
     # 7.26 and 61.72 ms, 6.27 and 4.52 ms, and are not kept.
     "dw(3,3,3)/(1,1,1)": ("cudnn", "cudnn"),            # dx 2.38 / 2.49; dW 4.85 / 5.60
     "dw(3,3,3)/(2,2,2)": ("cudnn", "cudnn"),            # dx 0.95 / 0.65; dW 0.31 / 0.33
+    # Video Swin-B's patch embedding under CLAS-FV (the default dW gave the
+    # same bits in five calls).
+    "(2,4,4)/(2,4,4)": ("cudnn_deterministic", "cudnn"),   # dx not in the step;
+    #                                                   dW 2.46 / 2.46 / 2.54
     # The CAMUS trainer's SegNet and shape autoencoder.
     "(3,3)/(1,1)": ("cudnn_deterministic", "cudnn"),    # dx not in the step, as the
     #                                                   stem's; dW 0.23

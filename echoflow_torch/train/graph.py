@@ -31,7 +31,10 @@ buffer, `loop.data_parallel`), Adam's state, the LR and BatchNorm's
 buffers. A call raises if any of them is no longer the tensor the graph
 captured (`Optimizer.load_state_dict` replaces Adam's state): make a new
 wrapper after a restore. What a call returns is a copy; the next replay
-overwrites the graph's own outputs.
+overwrites the graph's own outputs. A model whose training forward draws
+random numbers (`draws`: Video Swin-B's stochastic depth) draws them from
+its generator, which a graph of the step registers, so that each replay
+takes new numbers from it.
 
 Data parallelism (`loop.data_parallel`, one process a card): the step's
 collectives (global BatchNorm, the coupled smoothness, the gradient
@@ -135,6 +138,8 @@ class GraphedStep(_Graphs):
         super().__init__(model_memory(state.model, device))
         self.step_fn, self.state = step_fn, state
         self.train: bool | None = None     # a train step returns (state, metrics)
+        if getattr(state.model, "draws", False) and state.model.generator is not None:
+            self.generators = (state.model.generator,)
 
     def __call__(self, state, batch):
         if state is not self.state:

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from echoflow_torch.models.r2plus1d import create_model, frozen_running_stats, sync_batchnorm
+from echoflow_torch.models.r2plus1d import (backbones, create_model, frozen_running_stats,
+                                            sync_batchnorm)
 from echoflow_torch.parallel.mesh import average_gradients, shard_batch
 from echoflow_torch.train.graph import graphed
 from echoflow_torch.train.losses import (
@@ -66,17 +67,18 @@ class TrainConfig:
     # the optimization trajectory (echoflow's end-metric study,
     # benchmarks/bf16_train_study.json: ES Dice 0.0056 below fp32).
     compute_dtype: torch.dtype = torch.float32
-    # The network's backbone: "r2plus1d_18" (CLAS-FV as published) or
-    # "ir_csn_152" (`models/r2plus1d.motion_seg_net`).
+    # The network's backbone: "r2plus1d_18" (CLAS-FV as published),
+    # "ir_csn_152" or "swin3d_b" (`models/r2plus1d.motion_seg_net`).
     backbone: str = "r2plus1d_18"
 
 
 @dataclass
 class TrainState:
     """The model (train mode, on its device), its Adam optimizer, the LR
-    schedule, the number of updates taken, and the training generator. No
-    step draws from the generator yet; it is checkpointed and restored so a
-    resumed run continues the same stream. Under data parallelism
+    schedule, the number of updates taken, and the training generator.
+    Only a backbone with stochastic depth draws from the generator (Video
+    Swin-B; `create_train_state` hands it to the model); it is
+    checkpointed and restored so a resumed run continues the same stream. Under data parallelism
     (`data_parallel`) `group` is the process group of the ranks and `grads`
     the flat buffer whose views are the parameters' gradients; both are
     None in a single process."""
@@ -120,8 +122,9 @@ def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState
     default device is the card; without one this raises. The model
     computes in `cfg.compute_dtype` (fp32 leaves it to the parameters'
     dtype, so a caller may cast the model to float64); its parameters
-    stay fp32. On CUDA, TF32 is turned off for cuDNN and matmul
-    (process-wide), so the fp32 parts stay fp32."""
+    stay fp32; a backbone that runs in fp32 alone (Video Swin-B) raises
+    ValueError for another compute dtype. On CUDA, TF32 is turned off for
+    cuDNN and matmul (process-wide), so the fp32 parts stay fp32."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -129,10 +132,14 @@ def create_train_state(seed: int, cfg: TrainConfig, device="cuda") -> TrainState
                                "to train on the CPU)")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    if cfg.compute_dtype != torch.float32 and not backbones()[cfg.backbone].sixteen_bit:
+        raise ValueError(f"the {cfg.backbone} backbone trains in fp32 only "
+                         f"(compute_dtype=torch.float32)")
     model = create_model(seed=seed, backbone=cfg.backbone).to(device).train()
     if cfg.compute_dtype != torch.float32:
         model.compute_dtype = cfg.compute_dtype
     generator = torch.Generator(device=device).manual_seed(seed + 1)
+    model.generator = generator
     return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
                       schedule=lr_schedule(cfg), generator=generator)
 
@@ -239,9 +246,15 @@ def _model_forward(model, video, remat: bool):
     is kept for the backward, which runs the forward again when it first
     needs an activation (`torch.utils.checkpoint`, non-reentrant), with
     BatchNorm's running statistics frozen: the first forward counted this
-    batch. The forward draws no random numbers, so no RNG state is kept."""
+    batch. No RNG state is kept, so a training forward that draws
+    (stochastic depth, `model.draws`) raises ValueError with `remat`: its
+    recompute would draw other masks than the loss saw."""
     if not remat:
         return model(video)
+    if model.training and model.draws:
+        raise ValueError(f"remat: the {model.name} backbone draws stochastic depth's masks, "
+                         f"which its recompute would draw again; train it with drop path 0 "
+                         f"or without remat")
     return checkpoint(model, video, use_reentrant=False, preserve_rng_state=False,
                       context_fn=lambda: (contextlib.nullcontext(), _recompute(model)))
 
@@ -260,7 +273,8 @@ def make_train_step(fused_ota: bool = True, remat: bool = False):
     `fused_ota` (default) runs OTA's warps inside the chain loop
     (`clasfv_total_loss_fused`); False is the reference-literal schedule.
     `remat` recomputes the model's forward in the backward instead of
-    keeping its activations (`_model_forward`); the values are the same.
+    keeping its activations (`_model_forward`); the values are the same,
+    and a model whose training forward draws raises ValueError.
     Batch keys: video (N, 3, T, H, W) float32, ed_label/es_label (N, H, W)
     int, ed_idx/es_idx (N,) int, all on the model's device."""
     loss_fn = clasfv_total_loss_fused if fused_ota else clasfv_total_loss

@@ -153,6 +153,7 @@ class _Graphs:
 
     debug = False
     max_graphs = 8
+    generators: tuple = ()     # CUDA generators a capture draws from, besides the default
 
     def __init__(self, memory: _Memory | None):
         self.memory = memory
@@ -179,6 +180,8 @@ class _Graphs:
         graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
         if self.debug:
             graph.enable_debug_mode()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         with torch.cuda.graph(graph, pool=self.memory.pool(), stream=self.memory.stream(),
                               capture_error_mode="thread_local"):
             out = fn()

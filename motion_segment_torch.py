@@ -54,8 +54,9 @@ def parse_args(argv=None):
     ap.add_argument("--backbone", required=False, type=str, default="r2plus1d_18",
                     choices=list(backbones()),
                     help="the backbone of the seeded network run when no weights are "
-                         "found: CLAS-FV's R(2+1)D-18 (default) or ir-CSN-152 under the "
-                         "same decoder (a checkpoint's keys name its own)")
+                         "found: CLAS-FV's R(2+1)D-18 (default), ir-CSN-152 or Video Swin-B "
+                         "(fp32 only) under the same decoder (a checkpoint's keys name its "
+                         "own)")
     ap.add_argument("--height", required=False, type=int, default=112)
     ap.add_argument("--width", required=False, type=int, default=112)
     ap.add_argument("--precision", required=False, type=str, default="fp32",

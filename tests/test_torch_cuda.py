@@ -1632,3 +1632,128 @@ def test_channels_last_counter_grows_once_a_bf16_forward_chunk(cuda, dtype, chan
     assert chunks >= 4
     assert counters().get("backbone.channels_last", 0) - before == (chunks if channels_last
                                                                     else 0)
+
+
+# Video Swin-B's attention at its stages' shapes (batch 4): windows, heads,
+# tokens a window, width, token size (the last stage clipped to 128 tokens).
+SWIN_STAGES = [(128, 4, 392, 128, (16, 28, 28)), (8, 16, 392, 512, (16, 7, 7)),
+               (8, 32, 128, 1024, (16, 4, 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", SWIN_STAGES, ids=["stage1", "stage3", "stage4"])
+def test_swin_attention_route_matches_its_plain_version_and_repeats(cuda, stage):
+    """`ops/attention.window_attention` on the card in fp32 (shifted
+    windows: the mask; the table's gradient by fixed-order sums) against
+    autograd of `plain_window_attention`: the output, qkv's gradient and
+    the bias table's within 1e-5 relative L2 (fp32 sums in another order);
+    three calls give the same bits; each call counts one
+    `swin.attention.launches`."""
+    from echoflow_torch.models.swin3d import bias_indices, clipped, shift_mask
+    from echoflow_torch.ops.attention import (gathered_bias, plain_window_attention,
+                                              window_attention)
+
+    windows, heads, n, c, size = stage
+    device = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    window, shift = clipped(size, (8, 7, 7), (4, 3, 3))
+    mask = shift_mask(size, window, shift, device, torch.float32)
+    index, rows = bias_indices((8, 7, 7), n, device)
+    qkv = torch.randn(windows, n, 3 * c, device="cuda", generator=g, requires_grad=True)
+    table = (torch.randn(2535, heads, device="cuda", generator=g) * 0.02).requires_grad_(True)
+    dout = torch.randn(windows, n, c, device="cuda", generator=g)
+
+    def route():
+        out = window_attention(qkv, table, heads, index, rows, mask)
+        return (out.detach(), *torch.autograd.grad(out, (qkv, table), dout))
+
+    before = _launched("swin.attention")
+    runs = [route() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _launched("swin.attention") == before + 3
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+    out = plain_window_attention(qkv, gathered_bias(table, index, n), heads, mask)
+    want = (out.detach(), *torch.autograd.grad(out, (qkv, table), dout))
+    for got, ref in zip(runs[0], want):
+        assert _rel_l2(got, ref) <= 1e-5
+
+
+SWIN_CHILD = """
+import hashlib, sys
+import torch
+from echoflow_torch.train.loop import TrainConfig, compiled_steps, create_train_state, prefetch_to_device
+from echoflow_torch.utils.profiling import counters
+from train_clasfv_torch import synthetic_batches
+state = create_train_state(0, TrainConfig(backbone="swin3d_b"), device="cuda")
+step = compiled_steps(state)[0]
+counts = []
+for batch in prefetch_to_device(synthetic_batches(4, 32, 112, 3, seed=0), "cuda"):
+    state, _ = step(state, batch)
+    counts.append(counters().get("swin.attention.launches", 0))
+h = hashlib.sha256()
+for v in state.model.state_dict().values():
+    h.update(v.detach().cpu().contiguous().numpy().tobytes())
+print(len(step.generators), counts, state.model.draws)
+print(h.hexdigest())
+"""
+
+
+@pytest.mark.cuda
+def test_swin_graphed_steps_repeat_bitwise_in_a_fresh_process(cuda):
+    """Three graphed fp32 steps of CLAS-FV over Video Swin-B at full width
+    (`create_train_state(backbone="swin3d_b")`: stochastic depth at the
+    published 0.3, drawn from the state's generator, which the graph
+    registers; batch 4 x 3 x 32 x 112 x 112) in two fresh processes: the
+    same SHA-256 of the model's parameters and buffers. The warm-up, the
+    capture's replay and the next replay each count 24 attention launches
+    (one a block)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = [subprocess.run([sys.executable, "-c", SWIN_CHILD], cwd=root, capture_output=True,
+                           text=True, timeout=900) for _ in range(2)]
+    for out in outs:
+        assert out.returncode == 0, out.stderr[-3000:]
+    lines = [out.stdout.strip().splitlines() for out in outs]
+    assert lines[0][-1] == lines[1][-1]
+    assert lines[0][-2] == "1 [24, 48, 72] True"
+
+
+@pytest.mark.cuda
+def test_swin_folded_engine_segments_as_the_unfolded_model(cuda):
+    """`VideoSegmenter` over a Video Swin-B state dict on the card in fp32
+    (the seg head scaled and centred): the folded graphed engine
+    (`fold_bn=True`, K1) gives the masks of the unfolded network's forward
+    (`fold_bn=False, decoder="model"`) on a synthetic echo, both classes
+    present, but for pixels whose two logits
+    lie within fp32 rounding (at most 1e-4 of them); the graph's replay
+    of the video's one forward chunk counts 24 attention launches; a
+    16-bit engine refuses the backbone."""
+    from echoflow_torch.data.synthetic import make_beating_video
+    from echoflow_torch.infer.model import inference_model
+    from echoflow_torch.infer.pipeline import VideoSegmenter
+    from echoflow_torch.models.r2plus1d import create_model
+
+    state = create_model(seed=4, backbone="swin3d_b").state_dict()
+    state["segmentation_head.weight"] = state["segmentation_head.weight"] * 300.0
+    video = make_beating_video(num_frames=64, period=30.0, seed=1).video.astype(np.uint8)
+    model = inference_model(state, "cuda", torch.float32, fold_bn=False, kernel=False)
+    with torch.no_grad():   # the seg head centred on the first clip's median logit gap
+        seg, _ = model(torch.from_numpy(video[None, :, :32]).float().cuda() / 255.0)
+    gap = float((seg[:, 1] - seg[:, 0]).median())
+    state["segmentation_head.bias"] = state["segmentation_head.bias"] + torch.tensor(
+        [gap / 2, -gap / 2])
+    del model
+    engine = VideoSegmenter(state, device="cuda", dtype=torch.float32)
+    engine.segment_video(video, num_clips=1)        # the warm-up, eager
+    before = _launched("swin.attention")
+    masks = [engine.segment_video(video, num_clips=1)]   # the capture and its replay
+    assert _launched("swin.attention") - before == 24       # one chunk of the video's 2 clips
+    masks.append(VideoSegmenter(state, device="cuda", dtype=torch.float32, fold_bn=False,
+                                decoder="model").segment_video(video, num_clips=1))
+    assert masks[0].shape == (64, 112, 112) and 0 < masks[0].mean() < 1
+    assert np.mean(masks[0] != masks[1]) <= 1e-4
+    with pytest.raises(ValueError, match="swin3d_b"):
+        VideoSegmenter(state, device="cuda", dtype=torch.bfloat16)

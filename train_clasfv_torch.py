@@ -63,8 +63,9 @@ def parse_args(argv=None):
                          "0.0056 below fp32)")
     ap.add_argument("--image-size", type=int, default=112)
     ap.add_argument("--backbone", choices=list(backbones()), default="r2plus1d_18",
-                    help="the network's backbone: CLAS-FV's R(2+1)D-18 (default) or "
-                         "ir-CSN-152 (Tran et al. 2019) under the same decoder and heads")
+                    help="the network's backbone: CLAS-FV's R(2+1)D-18 (default), "
+                         "ir-CSN-152 (Tran et al. 2019) or Video Swin-B (Liu et al. 2022, "
+                         "fp32 only) under the same decoder and heads")
     ap.add_argument("--out", type=str, default="save_models/clasfv_torch.pth")
     ap.add_argument("--init-from", type=str, default=None,
                     help="stock torchvision r2plus1d_18 Kinetics-400 .pth: initialize "
